@@ -6,16 +6,21 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
   2. build every CUDA source with nvcc (one process per source, in
      parallel) and print the -Xptxas -v register / shared-memory lines;
   3. hold each kernel against its plain PyTorch version on the card, in f32
-     and bf16, at the serving shapes and at head dim 32, with an all-masked
-     slot, a window, a ragged context and a context-bucket view; time the
+     and bf16, at the serving shapes and at head dims 32 and 64, with an
+     all-masked slot, a window, a ragged context or sequence, a
+     context-bucket view, a non-causal case and non-contiguous q; time the
      kernel, the plain version and, where one PyTorch call computes the same
      function, that call (the port never calls it);
-  4. serve the paper's tier pair at full width and depth (qwen2-vl-2b edge,
-     qwen2.5-vl-7b cloud, bf16, random weights from a seed) through
-     ClusterServer on the paged KV pool, 8 requests of the launcher's mix;
-  5. the same on the dense KV pool, 2 requests;
-  6. at reduced size in f32, decode_impl "cuda" and "torch" give the same
-     tokens;
+  4. at full width and depth (qwen2-vl-2b edge, qwen2.5-vl-7b cloud, bf16,
+     random weights from a seed): one prefill batch of the serving shapes
+     through attn_impl "auto" and "cuda" on the same weights (logit
+     difference, argmax agreement, wall time), then serve 8 requests of the
+     launcher's mix through ClusterServer on the paged KV pool with
+     attn_impl "cuda" (prefill through the flash-attention kernel);
+  5. the "auto" models on the dense KV pool, 2 requests (plain prefill);
+  6. at reduced size in f32, attn_impl and decode_impl "cuda" and "torch"
+     give the same tokens, paged and dense, with prompts whose length falls
+     on and off a multiple of 64;
   7. ``python -m repro_torch.launch.serve --requests 4 --max-new 4``.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -344,6 +349,86 @@ def check_decode_paged(records):
                 "bound_ms": bd, "bound_by": by, "library_ms": None}
 
 
+def _flash_case(b, s, h, kh, hd, dtype, gen, layout):
+    """q (B, S, H, hd), k/v (B, S, K, hd); ``layout`` "contiguous", "bhsd"
+    (q a transposed view of a (B, H, S, hd) tensor, as a caller holding
+    SDPA's layout would pass it) or "unaligned" (q a slice at an odd offset
+    with a row stride of hd + 1: no 16-byte row alignment)."""
+    if layout == "bhsd":
+        q = _rand((b, h, s, hd), dtype, gen).transpose(1, 2)
+    elif layout == "unaligned":
+        q = _rand((b, s, h, hd + 1), dtype, gen)[..., 1:]
+    else:
+        q = _rand((b, s, h, hd), dtype, gen)
+    kv = _rand((b, s, 2, kh, hd), dtype, gen)  # k, v: views of one tensor
+    return q, kv[:, :, 0], kv[:, :, 1]
+
+
+def check_flash(records):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    cases = [
+        # (label, b, s, h, kh, hd, causal, window, q layout)
+        ("edge", 4, 320, 12, 2, 128, True, None, "contiguous"),
+        ("cloud", 4, 320, 28, 4, 128, True, None, "contiguous"),
+        ("hd32", 2, 128, 4, 2, 32, True, None, "contiguous"),
+        ("hd64", 2, 192, 8, 2, 64, True, None, "contiguous"),
+        ("ragged S=97", 2, 97, 4, 1, 128, True, None, "contiguous"),
+        ("ragged S=272", 1, 272, 12, 2, 128, True, None, "contiguous"),
+        ("non-causal", 2, 200, 8, 2, 64, False, None, "contiguous"),
+        ("window 64", 2, 256, 8, 2, 64, True, 64, "contiguous"),
+        ("non-causal window 64", 1, 160, 4, 2, 32, False, 64, "contiguous"),
+        ("q (B,H,S,hd) view", 2, 160, 8, 2, 128, True, None, "bhsd"),
+        ("q unaligned view", 2, 100, 4, 2, 64, True, None, "unaligned"),
+    ]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, b, s, h, kh, hd, causal, window, layout in cases:
+            q, k, v = _flash_case(b, s, h, kh, hd, dtype, gen, layout)
+            got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            t = tol[dtype]
+            if not torch.allclose(got.float(), want.float(), rtol=t, atol=t):
+                fail(f"flash_attention {label} {dtype}: max |err| {err}")
+            if label == "cloud" and dtype == torch.bfloat16:
+                worst = err
+            print(f"  flash_attention {label} {str(dtype)[6:]}: max |err| "
+                  f"{err:.3g} (tol {t})")
+    # timing at the main path's shapes: both tiers, bf16, R=4 rows, S=320
+    for label, h, kh in (("edge", 12, 2), ("cloud", 28, 4)):
+        b, s, hd = 4, 320, 128
+        q, k, v = _flash_case(b, s, h, kh, hd, torch.bfloat16, gen,
+                              "contiguous")
+        k, v = k.contiguous(), v.contiguous()
+        ms = cuda_time_ms(lambda: flash_attention_cuda(q, k, v))
+        plain = cuda_time_ms(lambda: flash_attention_plain(q, k, v),
+                             iters=20)
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True))
+        nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
+        flops = 4.0 * b * h * hd * s * (s + 1) / 2  # causal pairs only
+        bd, by = bound_ms(nbytes, flops, "bfloat16")
+        print(f"  flash_attention {label} R=4 S=320 bf16: kernel "
+              f"{ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, sdpa "
+              f"{lib * 1e3:.2f} us, bound {bd * 1e3:.3f} us ({by})")
+        if label == "cloud":
+            records["flash_attention"] = {
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:82",
+                "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+                "bound_ms": bd, "bound_by": by, "library_ms": lib}
+
+
 # ---------------------------------------------------------------------------
 # phase 4-7: serving
 # ---------------------------------------------------------------------------
@@ -413,10 +498,47 @@ def serve(engines, topo, n_requests: int, max_new: int, label: str):
     return counts
 
 
+def compare_prefill(auto_model, cuda_model, params, label):
+    """One prefill batch of the serving shapes (R=4 rows, 256 patches + a
+    64-token text bucket: S=320) through attn_impl "auto" (plain dense
+    attention) and "cuda" (the flash-attention kernel) on the same weights;
+    each call timed after one warm-up call."""
+    import numpy as np
+    import torch
+
+    cfg = auto_model.cfg
+    rng = np.random.default_rng(7)
+    batch = {
+        "tokens": torch.as_tensor(rng.integers(4, cfg.vocab_size, (4, 64)),
+                                  dtype=torch.int32, device="cuda"),
+        "patches": torch.as_tensor(rng.standard_normal(
+            (4, cfg.num_patches, cfg.frontend_dim)), dtype=torch.float32,
+            device="cuda")}
+    out, wall = {}, {}
+    for name, model in (("auto", auto_model), ("cuda", cuda_model)):
+        model.prefill(params, batch, 512)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, batch, 512)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        out[name] = logits.float()
+    if not all(bool(torch.isfinite(x).all()) for x in out.values()):
+        fail(f"{label}: prefill logits are not finite")
+    diff = float((out["auto"] - out["cuda"]).abs().max())
+    agree = int((out["auto"].argmax(-1) == out["cuda"].argmax(-1)).sum())
+    print(f"  prefill {label} R=4 S=320: max |logit auto - cuda| {diff:.4g} "
+          f"(of max |logit| {float(out['auto'].abs().max()):.4g}), argmax "
+          f"agrees on {agree}/4 rows | wall auto {wall['auto'] * 1e3:.2f} ms, "
+          f"cuda {wall['cuda'] * 1e3:.2f} ms")
+
+
 def phase_serve_full(records):
     import torch
 
     from repro_torch.config import ServingConfig, get_topology
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import TierEngine
     from repro_torch.serving.tiers import build_cluster_engines
 
     torch.cuda.reset_peak_memory_stats()
@@ -428,30 +550,39 @@ def phase_serve_full(records):
                                     device="cuda", full_width=True)
     torch.cuda.synchronize()
     print(f"  built full-width engines in {time.perf_counter() - t0:.1f}s")
-    counts = serve(engines, topo, 8, 16, "paged full width")
-    for name in ("image_stats", "decode_attention_paged"):
+    # phase 4: prefill through the flash-attention kernel, same weights
+    flash = {}
+    for name, e in engines.items():
+        model = build_model(e.cfg, attn_impl="cuda", device="cuda")
+        compare_prefill(e.model, model, e.params, f"{name} ({e.cfg.name})")
+        flash[name] = TierEngine(model, e.params, sv)
+    counts = serve(flash, topo, 8, 16, "paged full width, attn cuda")
+    for name in ("image_stats", "flash_attention", "decode_attention_paged"):
         if counts[name] <= 0:
             fail(f"paged serve never launched {name}")
         records[name]["launches"] = counts[name]
-    # phase 5: the library-default dense pool on the same weights
+    del flash
+    # phase 5: the library-default dense pool on the "auto" models
     sv_dense = ServingConfig(max_batch=4, max_seq=512, paged=False,
                              fused_steps=8)
-    from repro_torch.serving.engine import TierEngine
-
     dense = {name: TierEngine(e.model, e.params, sv_dense)
              for name, e in engines.items()}
     del engines
-    counts = serve(dense, topo, 2, 16, "dense full width")
+    counts = serve(dense, topo, 2, 16, "dense full width, attn auto")
     if counts["decode_attention"] <= 0:
         fail("dense serve never launched decode_attention")
+    if counts["flash_attention"] != 0:
+        fail("attn_impl auto reached the flash-attention kernel")
     records["decode_attention"]["launches"] = counts["decode_attention"]
     del dense
     torch.cuda.empty_cache()
 
 
 def phase_impl_parity():
-    """Reduced f32 engines: the kernel and the plain version decode the
-    same tokens, paged and dense."""
+    """Reduced f32 engines: the kernels and their plain versions (attn_impl
+    and decode_impl "cuda" against "torch") decode the same tokens, paged
+    and dense. Prompts with patches prefill at S = 8 + bucket (24, 40, 72:
+    off a multiple of 64), text-only ones at S = 64 and 128 (on one)."""
     import numpy as np
     import torch
 
@@ -463,20 +594,22 @@ def phase_impl_parity():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = reduced_config("qwen2-vl-2b").replace(dtype="float32")
-    model = build_model(cfg, device="cuda")
-    params = model.init(0)
+    models = {impl: build_model(cfg, attn_impl=impl, device="cuda")
+              for impl in ("cuda", "torch")}
+    params = models["cuda"].init(0)
     rng = np.random.default_rng(0)
     prompts = [(rng.integers(4, cfg.vocab_size, n).astype(np.int32),
-                rng.standard_normal((cfg.num_patches, cfg.frontend_dim))
-                .astype(np.float32)) for n in (9, 21, 40)]
+                {"patches": rng.standard_normal(
+                    (cfg.num_patches, cfg.frontend_dim)).astype(np.float32)}
+                if n < 48 else {}) for n in (9, 21, 40, 50, 90)]
     for paged in (True, False):
         toks = {}
         for impl in ("cuda", "torch"):
             sv = ServingConfig(max_batch=4, max_seq=128, paged=paged,
                                kv_page_size=16, decode_impl=impl)
-            eng = TierEngine(model, params, sv)
-            for rid, (p, patches) in enumerate(prompts):
-                eng.submit(rid, p, max_new=12, extras={"patches": patches})
+            eng = TierEngine(models[impl], params, sv)
+            for rid, (p, extras) in enumerate(prompts):
+                eng.submit(rid, p, max_new=12, extras=extras)
             toks[impl] = {s.rid: s.generated for s in eng.run_until_drained()}
         if toks["cuda"] != toks["torch"]:
             fail(f"paged={paged}: cuda {toks['cuda']} != torch "
@@ -526,13 +659,15 @@ def main() -> None:
         check_image(records)
         check_decode_dense(records)
         check_decode_paged(records)
+        check_flash(records)
     if 4 in phases or 5 in phases:
         if 3 not in phases:
             fail("phases 4-5 record launches into phase 3's kernel records")
-        print("phase 4-5: full-width serving (paged, then dense)")
+        print("phase 4-5: full-width prefill and serving (paged with the "
+              "flash-attention kernel, then dense)")
         phase_serve_full(records)
     if 6 in phases:
-        print("phase 6: reduced f32, cuda vs torch decode")
+        print("phase 6: reduced f32, cuda vs torch prefill and decode")
         phase_impl_parity()
     if 7 in phases:
         print("phase 7: launcher")

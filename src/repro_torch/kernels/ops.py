@@ -19,6 +19,8 @@ from repro_torch.config import ComplexityConfig
 from repro_torch.kernels.decode_attention import (
     decode_attention_cuda, decode_attention_paged_cuda,
     decode_attention_paged_plain, decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.image_complexity import (image_stats_cuda,
                                                   image_stats_plain)
 
@@ -84,6 +86,19 @@ def image_complexity(imgs: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Prefill self-attention: q (B, S, H, hd), k/v (B, S, K, hd), any S."""
+    if _route(q, "flash_attention"):
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        flash_attention.launches += 1
+        return out
+    return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+flash_attention.launches = 0
+
+
 def decode_attention(q, k_cache, v_cache, pos_q, pos_cache, *,
                      window: Optional[int] = None) -> torch.Tensor:
     """Decode against a dense (B, T, K, hd) cache (strided views allowed)."""
@@ -116,6 +131,7 @@ decode_attention_paged.launches = 0
 
 #: every counted wrapper, by name (for resetting and reading the counts)
 COUNTED = {"image_stats": image_stats,
+           "flash_attention": flash_attention,
            "decode_attention": decode_attention,
            "decode_attention_paged": decode_attention_paged}
 

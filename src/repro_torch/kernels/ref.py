@@ -23,6 +23,17 @@ def image_stats_batch_ref(imgs: torch.Tensor) -> Dict[str, torch.Tensor]:
     return image_stats_plain(imgs)
 
 
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q: (B,S,H,hd); k/v: (B,S,K,hd) -> (B,S,H,hd). Self-attention layout
+    (query position i == key position i)."""
+    from repro_torch.models.attention import dense_attention
+
+    pos = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+    return dense_attention(q, k, v, pos, pos, causal=causal, window=window)
+
+
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, pos_q: torch.Tensor,
                          pos_cache: torch.Tensor, *,

@@ -7,9 +7,11 @@ XLA paths these port (``flash_attention_xla`` -> :func:`flash_attention_torch`,
 The decode dispatchers choose between the CUDA kernels of
 ``repro_torch.kernels`` and these plain versions (``impl``: ``auto`` = the
 kernel for CUDA tensors and the plain version for CPU tensors, ``torch`` =
-plain, ``cuda`` = kernel, raising on CPU tensors). Prefill has no kernel in
-this port yet: the dispatcher picks among the plain paths exactly as the
-JAX dispatcher does on ``auto``.
+plain, ``cuda`` = kernel, raising on CPU tensors). The prefill dispatcher
+takes ``cuda`` (the flash-attention kernel) and ``torch`` (its plain
+version), the port's counterpart of the JAX ``pallas``; both refuse
+``Sq != Skv``. Its ``auto`` picks among ``dense``, ``local`` and ``flash``
+exactly as the JAX dispatcher does, never the kernel.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from repro_torch.kernels.decode_attention import (NEG_INF,
                                                   decode_attention_paged_plain,
                                                   decode_attention_plain)
+from repro_torch.kernels.flash_attention import flash_attention_plain
 
 decode_attention_torch = decode_attention_plain
 decode_attention_paged_torch = decode_attention_paged_plain
@@ -178,9 +181,10 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, sp, h, d)[:, :s].to(q.dtype)
 
 
-def _kernel_or_raise(q: torch.Tensor, impl: str) -> None:
+def _kernel_or_raise(q: torch.Tensor, impl: str,
+                     what: str = "decode") -> None:
     if impl == "cuda" and q.device.type != "cuda":
-        raise ValueError(f"decode impl 'cuda' needs CUDA tensors, got "
+        raise ValueError(f"{what} impl 'cuda' needs CUDA tensors, got "
                          f"{q.device}")
 
 
@@ -216,7 +220,18 @@ def decode_attention(q, k_cache, v_cache, pos_q, pos_cache, *,
 
 def attention(q, k, v, pos_q, pos_kv, *, causal=True, window=None,
               impl="auto", q_chunk=2048, kv_chunk=2048):
-    """Prefill dispatcher. impl: auto | dense | flash | local."""
+    """Prefill dispatcher. impl: auto | dense | flash | local | cuda | torch.
+
+    ``cuda`` and ``torch`` are the self-attention kernel and its plain
+    version: position == index, so they ignore ``pos_q``/``pos_kv`` and
+    raise on a K/V of other length than q (a cached context)."""
+    if impl == "torch":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        _kernel_or_raise(q, impl, "prefill")
+        return kops.flash_attention(q, k, v, causal=causal, window=window)
     if impl == "auto":
         sq, skv = q.shape[1], k.shape[1]
         if window is not None and causal and sq == skv and sq > window:

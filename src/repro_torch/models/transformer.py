@@ -29,6 +29,9 @@ from repro_torch.models.spec import ParamSpec, init_tree
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
+#: prefill attention impls (``attention.attention``); ``cuda``/``torch`` are
+#: the counterpart of the JAX package's ``pallas``
+ATTN_IMPLS = ("auto", "dense", "flash", "local", "cuda", "torch")
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -78,6 +81,9 @@ class DecoderLM(nn.Module):
             raise NotImplementedError(
                 f"family {cfg.family!r}: only dense and vlm are ported "
                 f"(ROADMAP queue 1, item 11: remaining families)")
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS} "
+                             f"(the JAX 'pallas' is 'cuda' here)")
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.decode_impl = decode_impl

@@ -1,7 +1,8 @@
 """The port's TierEngine against the JAX package's at temperature 0 with the
 same (converted) weights: per-token and fused decode, dense and paged KV
-pools, prompts across two length buckets, a vlm request with patches; and
-the port engine's snapshot/restore round trip."""
+pools, prompts across two length buckets, a vlm request with patches,
+prefill attention ``auto`` on both sides and JAX ``pallas`` against port
+``torch``; and the port engine's snapshot/restore round trip."""
 import numpy as np
 import pytest
 
@@ -21,19 +22,30 @@ from repro_torch.serving.engine import TierEngine  # noqa: E402
 torch.set_float32_matmul_precision("highest")
 
 
-@pytest.fixture(scope="module", params=["qwen2-vl-2b", "qwen3-0.6b"])
+#: prefill attention impls (JAX, port) that compute the same function: the
+#: default dispatchers, and the Pallas flash-attention kernel against the
+#: port's plain version of its CUDA kernel
+IMPLS = {"auto": ("auto", "auto"), "pallas": ("pallas", "torch")}
+
+
+@pytest.fixture(scope="module", params=[
+    ("qwen2-vl-2b", "auto"), ("qwen3-0.6b", "auto"),
+    ("qwen2-vl-2b", "pallas"), ("qwen3-0.6b", "pallas")],
+    ids=lambda p: p[0] if p[1] == "auto" else f"{p[0]}-pallas-torch")
 def models(request):
-    name = request.param
-    jm = j_build(j_reduced(name).replace(dtype="float32"))
+    name, impl = request.param
+    j_impl, t_impl = IMPLS[impl]
+    jm = j_build(j_reduced(name).replace(dtype="float32"), attn_impl=j_impl)
     jp = jm.init(jax.random.PRNGKey(0))
     tm = build_model(reduced_config(name).replace(dtype="float32"),
-                     device="cpu")
+                     attn_impl=t_impl, device="cpu")
     return jm, jp, tm, params_from_numpy(jax.device_get(jp), "cpu")
 
 
 def _jobs(cfg, n=5):
     """More requests than slots (slot refill), prompt lengths across two
-    length buckets, patches on every other vlm request."""
+    length buckets, patches on every other vlm request. Every prefill has
+    S <= 64 (max_seq), which the Pallas kernel takes."""
     rng = np.random.default_rng(0)
     out = []
     for rid in range(n):
@@ -86,6 +98,19 @@ def test_snapshot_restore_round_trip(models):
     again = {s.rid: list(s.generated) for s in eng.finished[k1:]}
     assert again == first and len(first) > 0
     assert eng.pool.gauges()["pages_free"] == sv.pool_pages
+
+
+def test_engine_keeps_attn_impl(models):
+    """The engine's shallow model copy keeps the prefill impl, through
+    snapshot and restore, and leaves the caller's model as it was."""
+    _, _, tm, tp = models
+    sv = ServingConfig(max_batch=2, max_seq=64, decode_impl="torch")
+    eng = TierEngine(tm, tp, sv)
+    assert eng.model is not tm and eng.model.attn_impl == tm.attn_impl
+    assert eng.model.decode_impl == "torch" and tm.decode_impl == "auto"
+    snap = eng.snapshot()
+    eng.restore(snap)
+    assert eng.model.attn_impl == tm.attn_impl
 
 
 def test_unported_engine_paths_raise_with_roadmap_item(models):

@@ -19,6 +19,8 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_cuda, decode_attention_paged_cuda)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.image_complexity import image_stats_cuda  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")
@@ -222,6 +224,109 @@ def test_decode_dispatcher_cuda_impl_refuses_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
+# flash attention (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _flash_inputs(seed, b, s, h, kh, hd):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+
+
+def _check_flash(q, k, v, *, dtype="float32", causal=True, window=None,
+                 pallas=True):
+    """The plain version against the JAX oracle (dense XLA attention) and,
+    where the Pallas kernel takes S, the Pallas kernel in interpret mode;
+    bf16 inputs are rounded alike on both sides and compared in f32."""
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    jq, jk, jv = (jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v))
+    tq, tk, tv = (torch.as_tensor(x).to(getattr(torch, dtype))
+                  for x in (q, k, v))
+    got = flash_attention_plain(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    wants = [jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                      window=window)]
+    if pallas:
+        wants.append(jops.flash_attention(jq, jk, jv, causal=causal,
+                                          window=window, block_q=64,
+                                          block_k=64, interpret=True))
+    for want in wants:
+        np.testing.assert_allclose(got.float().numpy(), _np(want), rtol=tol,
+                                   atol=tol)
+    own = tref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(own.float().numpy(), got.float().numpy(),
+                               rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("s,h,kh,hd", [
+    (128, 4, 4, 32),   # MHA
+    (128, 8, 2, 64),   # GQA
+    (256, 4, 1, 64),   # MQA
+])
+def test_flash_plain_matches_pallas(s, h, kh, hd):
+    _check_flash(*_flash_inputs(s + h + hd, 2, s, h, kh, hd))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_dtypes(dtype):
+    _check_flash(*_flash_inputs(11, 1, 128, 4, 2, 64), dtype=dtype)
+
+
+@pytest.mark.parametrize("causal,window", [(False, None), (True, 64),
+                                           (False, 64)])
+def test_flash_plain_bidirectional_and_window(causal, window):
+    _check_flash(*_flash_inputs(12, 1, 256, 4, 2, 32), causal=causal,
+                 window=window)
+
+
+@pytest.mark.parametrize("s", [97, 272])
+def test_flash_plain_ragged_length(s):
+    """Any S: the Pallas kernel asserts S % 128 == 0 past 128, so the
+    reference here is the JAX dense path and the XLA flash path."""
+    q, k, v = _flash_inputs(s, 2, s, 4, 2, 32)
+    got = _check_flash(q, k, v, pallas=False)
+    pos = jnp.arange(s, dtype=jnp.int32)
+    want = jattn.flash_attention_xla(*map(jnp.asarray, (q, k, v)), pos, pos,
+                                     causal=True)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=RTOL, atol=ATOL)
+
+
+def test_flash_wrapper_on_cpu_takes_plain_version():
+    from repro_torch.models import attention as tattn
+
+    q, k, v = map(torch.as_tensor, _flash_inputs(13, 2, 40, 4, 2, 32))
+    before = tops.flash_attention.launches
+    via_ops = tops.flash_attention(q, k, v)
+    via_torch = tattn.attention(q, k, v, None, None, impl="torch")
+    assert tops.flash_attention.launches == before
+    want = flash_attention_plain(q, k, v)
+    assert torch.equal(via_ops, want) and torch.equal(via_torch, want)
+
+
+def test_prefill_dispatcher_refusals():
+    from repro_torch.models import attention as tattn
+
+    q, k, v = map(torch.as_tensor, _flash_inputs(14, 1, 32, 4, 2, 32))
+    pos = torch.arange(32, dtype=torch.int32)
+    with pytest.raises(ValueError, match="cuda"):
+        tattn.attention(q, k, v, pos, pos, impl="cuda")
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, k, v)  # the kernel wrapper itself
+    # a cached context (chunk mode: Skv != Sq) needs positions: refused
+    kc, vc = torch.cat([k, k], dim=1), torch.cat([v, v], dim=1)
+    with pytest.raises(ValueError, match="Sq"):
+        tattn.attention(q, kc, vc, pos, torch.arange(64), impl="torch")
+    with pytest.raises(ValueError):
+        tattn.attention(q, kc, vc, pos, torch.arange(64), impl="cuda")
+    with pytest.raises(ValueError, match="Sq"):
+        flash_attention_plain(q, kc, vc)
+    with pytest.raises(ValueError):
+        tattn.attention(q, k, v, pos, pos, impl="pallas")  # JAX spelling
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels (need a card)
 # ---------------------------------------------------------------------------
 
@@ -266,3 +371,32 @@ def test_decode_kernels_match_plain(cuda, dtype, h, kh, hd):
     torch.testing.assert_close(decode_attention_paged_cuda(*pt).float(),
                                tref.decode_attention_paged_ref(*pt).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kh,hd,causal,window,layout", [
+    (4, 320, 12, 2, 128, True, None, "contiguous"),   # edge serving shape
+    (4, 320, 28, 4, 128, True, None, "contiguous"),   # cloud serving shape
+    (2, 97, 4, 1, 128, True, None, "contiguous"),     # ragged S
+    (1, 272, 12, 2, 128, True, None, "bhsd"),         # 256 + 16, q view
+    (2, 128, 4, 2, 32, True, 64, "contiguous"),       # hd 32, window
+    (2, 200, 8, 2, 64, False, None, "unaligned"),     # hd 64, non-causal
+])
+def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, causal,
+                                    window, layout):
+    dt = getattr(torch, dtype)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    q, k, v = (torch.as_tensor(x, device=cuda).to(dt)
+               for x in _flash_inputs(s + hd, b, s, h, kh, hd))
+    if layout == "bhsd":  # q a transposed view of a (B, H, S, hd) tensor
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif layout == "unaligned":  # odd offset, row stride hd + 1
+        wide = torch.zeros((b, s, h, hd + 1), dtype=dt, device=cuda)
+        wide[..., 1:] = q
+        q = wide[..., 1:]
+    before = tops.flash_attention.launches
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    assert tops.flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -1,6 +1,8 @@
 """The port's DecoderLM against the JAX package's, in float32 with the same
-(converted) weights: prefill logits and cache, then decode steps on the
-dense and the paged cache, with and without the context hint."""
+(converted) weights: prefill logits and cache (JAX ``auto`` against port
+``auto``, and JAX ``pallas`` against port ``torch``, the flash-attention
+kernel's plain version), then decode steps on the dense and the paged
+cache, with and without the context hint."""
 import numpy as np
 import pytest
 
@@ -20,13 +22,23 @@ CAP = 64
 PAGE = 16
 
 
-@pytest.fixture(scope="module", params=["qwen2-vl-2b", "qwen3-0.6b"])
+#: prefill attention impls (JAX, port) that compute the same function: the
+#: default dispatchers, and the Pallas flash-attention kernel against the
+#: port's plain version of its CUDA kernel
+IMPLS = {"auto": ("auto", "auto"), "pallas": ("pallas", "torch")}
+
+
+@pytest.fixture(scope="module", params=[
+    ("qwen2-vl-2b", "auto"), ("qwen3-0.6b", "auto"),
+    ("qwen2-vl-2b", "pallas"), ("qwen3-0.6b", "pallas")],
+    ids=lambda p: p[0] if p[1] == "auto" else f"{p[0]}-pallas-torch")
 def pair(request):
-    name = request.param
-    jm = j_build(j_reduced(name).replace(dtype="float32"))
+    name, impl = request.param
+    j_impl, t_impl = IMPLS[impl]
+    jm = j_build(j_reduced(name).replace(dtype="float32"), attn_impl=j_impl)
     jp = jax.device_get(jm.init(jax.random.PRNGKey(0)))
     tm = build_model(reduced_config(name).replace(dtype="float32"),
-                     device="cpu")
+                     attn_impl=t_impl, device="cpu")
     return jm, jp, tm, params_from_numpy(jp, "cpu")
 
 
@@ -58,6 +70,8 @@ def _to_paged(cache, rng):
 
 
 def test_prefill_logits_and_cache(pair):
+    # S = 19 (vlm: 8 patches + 11 tokens) or 11: the Pallas kernel takes
+    # any S up to 128
     jm, jp, tm, tp = pair
     batch = _prompt(tm.cfg, np.random.default_rng(0))
     jl, jc = jm.prefill(jp, {k: jnp.asarray(v) for k, v in batch.items()}, CAP)
@@ -130,3 +144,11 @@ def test_build_model_refuses_unported_family():
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_config("mamba2-2.7b"), device="cpu")
+
+
+def test_build_model_validates_attn_impl(pair):
+    cfg = pair[2].cfg
+    with pytest.raises(ValueError, match="pallas"):
+        build_model(cfg, attn_impl="pallas", device="cpu")  # JAX spelling
+    for impl in ("auto", "dense", "flash", "local", "cuda", "torch"):
+        assert build_model(cfg, attn_impl=impl, device="cpu").attn_impl == impl

@@ -8,9 +8,16 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
   3. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16, at the serving shapes and at head dims 32 and 64, with an
      all-masked slot, a window, a ragged context or sequence, a
-     context-bucket view, a non-causal case and non-contiguous q; time the
+     context-bucket view, a non-causal case and non-contiguous q (decode
+     also at T = 1, 33, 97, 300 and 4096, pages of 16 and 64, one live
+     split among masked ones, and a forced single split); time the
      kernel, the plain version and, where one PyTorch call computes the same
-     function, that call (the port never calls it);
+     function, that call (the port never calls it). Decode is timed as the
+     decode loop meets it: launches rotate over a stacked cache larger than
+     the L2, the device time per call comes from a replayed CUDA graph
+     (which proves the kernel can be captured; its outputs must equal eager
+     calls), with SDPA timed the same way in turns and the eager wall per
+     call beside it, at T=384 and T=4096;
   4. at full width and depth (qwen2-vl-2b edge, qwen2.5-vl-7b cloud, bf16,
      random weights from a seed): one prefill batch of the serving shapes
      through attn_impl "auto" and "cuda" on the same weights (logit
@@ -178,31 +185,133 @@ def check_image(records):
         "bound_by": by, "library_ms": None}
 
 
+def graph_time_ms(fns, replays: int):
+    """Device time per call: warm each zero-argument call, capture all of
+    them (in order, one launch sequence each) into one CUDA graph, and
+    replay it ``replays`` times between CUDA events. Returns the time per
+    call and what the captured calls returned (valid after each replay).
+    A call that cannot be captured raises, and the phase fails."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as PyTorch asks
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for fn in fns]
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * len(fns)), outs
+
+
+def eager_time_ms(fns, rounds: int) -> float:
+    """Wall per eager call (CUDA events around ``rounds`` passes over the
+    calls after one warm pass): what a caller without a graph pays."""
+    return cuda_time_ms(lambda: [fn() for fn in fns], iters=rounds,
+                        warmup=1) / len(fns)
+
+
+DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
 def _decode_case(b, h, kh, hd, t_cache, t_ctx, dtype, gen, *, fill=None,
-                 dead_slot=False, window=None):
-    """Dense-cache inputs: k/v (B, t_cache, K, hd), attended view t_ctx."""
+                 dead_slot=False, window=None, live=None, layers=0):
+    """Dense-cache inputs: k/v (B, t_cache, K, hd), attended view t_ctx.
+    ``live=(lo, hi)``: only rows lo..hi-1 hold positions (0..), every other
+    entry is empty. ``layers``: k/v are layer 0 of a stacked cache
+    (2, layers, B, t_cache, K, hd) of k and v, returned as the last item."""
     import torch
 
     q = _rand((b, 1, h, hd), dtype, gen)
-    k = _rand((b, t_cache, kh, hd), dtype, gen)
-    v = _rand((b, t_cache, kh, hd), dtype, gen)
+    stack = _rand((2, max(layers, 1), b, t_cache, kh, hd), dtype, gen)
+    k, v = stack[0, 0], stack[1, 0]
     fill = t_ctx - 3 if fill is None else fill
     pos = torch.full((b, t_cache), -1, dtype=torch.int32, device="cuda")
-    pos[:, :fill] = torch.arange(fill, dtype=torch.int32, device="cuda")
+    if live is not None:
+        lo, hi = live
+        pos[:, lo:hi] = torch.arange(hi - lo, dtype=torch.int32, device="cuda")
+        fill = hi - lo
+    else:
+        pos[:, :fill] = torch.arange(fill, dtype=torch.int32, device="cuda")
     pq = torch.full((b,), fill - 1, dtype=torch.int32, device="cuda")
     if dead_slot:
         pos[b - 1] = -1  # an empty slot: every entry masked
-    return q, k, v, pq, pos, window
+    return q, k, v, pq, pos, window, stack
+
+
+def _paged_case(b, h, kh, hd, page, n_pt, t_ctx, dtype, gen, *, window=None,
+                dead_slot=False, live=None, layers=0):
+    """Paged inputs: a shuffled page table over a pool with a null page 0;
+    each slot reserves only the pages its fill needs (tail entries map to
+    the null page), and the attended width may end mid-page. ``live`` and
+    ``layers`` as for :func:`_decode_case` (pools (2, layers, P, page, K, hd))."""
+    import torch
+
+    n_pages = b * n_pt + 1
+    stack = _rand((2, max(layers, 1), n_pages, page, kh, hd), dtype, gen)
+    kp, vp = stack[0, 0], stack[1, 0]
+    q = _rand((b, 1, h, hd), dtype, gen)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(
+        b * 1000 + t_ctx)) + 1
+    pages = perm[:b * n_pt].reshape(b, n_pt).to(torch.int32)
+    fill = t_ctx - 5 if live is None else live[1]
+    used = -(-fill // page)
+    pages[:, used:] = 0  # unreserved tail -> null page
+    pages = pages.cuda()
+    pos = torch.full((b, t_ctx), -1, dtype=torch.int32, device="cuda")
+    if live is not None:
+        lo, hi = live
+        pos[:, lo:hi] = torch.arange(hi - lo, dtype=torch.int32, device="cuda")
+        fill = hi - lo
+    else:
+        pos[:, :fill] = torch.arange(fill, dtype=torch.int32, device="cuda")
+    pq = torch.full((b,), fill - 1, dtype=torch.int32, device="cuda")
+    if dead_slot:
+        pos[b - 1] = -1
+        pages[b - 1] = 0
+    npg = -(-t_ctx // page)
+    return q, kp, vp, pages[:, :npg], pq, pos, window, stack
+
+
+def _hold(label, got, want, dtype, v_rows=None):
+    """got against want at the dtype's tolerance; with ``v_rows`` (the last
+    slot's attended (T, K, hd) value rows) also that slot against mean(V)."""
+    import torch
+
+    t = DECODE_TOL[str(dtype)[6:]]
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=t, atol=t):
+        fail(f"{label} {dtype}: max |err| {err}")
+    if v_rows is not None:
+        kh, hd = v_rows.shape[1:]
+        mean_v = v_rows.float().mean(dim=0)  # (K, hd)
+        row = got[-1, 0].float().reshape(kh, -1, hd)
+        if not torch.allclose(row, mean_v[:, None].expand_as(row), rtol=t,
+                              atol=t):
+            fail(f"{label} {dtype}: the all-masked slot does not return "
+                 f"mean(V)")
+    print(f"  {label} {str(dtype)[6:]}: max |err| {err:.3g} (tol {t})"
+          + (", all-masked slot = mean(V)" if v_rows is not None else ""))
+    return err
 
 
 def check_decode_dense(records):
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       decode_attention_plain)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     cases = [
         # (label, b, h, kh, hd, t_cache, t_ctx, kwargs)
         ("edge", 4, 12, 2, 128, 512, 384, {}),
@@ -210,85 +319,45 @@ def check_decode_dense(records):
         ("cloud all-masked slot", 4, 28, 4, 128, 512, 384,
          {"dead_slot": True}),
         ("hd32 reduced", 2, 4, 2, 32, 64, 48, {}),
+        # window edge (position 189) inside the split of rows 160-191
         ("window 64", 2, 8, 2, 64, 256, 256, {"window": 64}),
+        ("cloud window 64", 4, 28, 4, 128, 512, 384, {"window": 64}),
         ("ragged T=97", 2, 4, 1, 128, 97, 97, {}),
+        ("T=1", 2, 8, 2, 128, 16, 1, {"fill": 1}),
+        ("T=33 (one row in the last split)", 2, 12, 2, 128, 64, 33,
+         {"fill": 33}),
+        ("cloud T=300 (not a multiple of the split)", 4, 28, 4, 128, 512,
+         300, {}),
+        # attended rows 208-223 lie in one split, every other split masked
+        ("cloud one live split", 4, 28, 4, 128, 512, 512,
+         {"live": (208, 224)}),
+        ("cloud forced single split", 4, 28, 4, 128, 512, 384,
+         {"split_rows": 4096}),
+        ("cloud T=4096", 4, 28, 4, 128, 4096, 4096, {}),
+        ("cloud T=4096 all-masked slot", 4, 28, 4, 128, 4096, 4096,
+         {"dead_slot": True}),
+        ("edge T=4096 forced single split", 4, 12, 2, 128, 4096, 4096,
+         {"split_rows": 4096}),
     ]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for label, b, h, kh, hd, tc, tx, kw in cases:
-            q, k, v, pq, pos, window = _decode_case(b, h, kh, hd, tc, tx,
-                                                    dtype, gen, **kw)
+            kw = dict(kw)
+            rows = kw.pop("split_rows", None)
+            q, k, v, pq, pos, window, _ = _decode_case(b, h, kh, hd, tc, tx,
+                                                       dtype, gen, **kw)
             kv, vv, pv = k[:, :tx], v[:, :tx], pos[:, :tx]  # bucket view
-            got = decode_attention_cuda(q, kv, vv, pq, pv, window=window)
+            got = decode_attention_cuda(q, kv, vv, pq, pv, window=window,
+                                        split_rows=rows)
             want = decode_attention_plain(q, kv, vv, pq, pv, window=window)
             torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            t = tol[dtype]
-            if not torch.allclose(got.float(), want.float(), rtol=t, atol=t):
-                fail(f"decode_attention {label} {dtype}: max |err| {err}")
-            if kw.get("dead_slot"):
-                mean_v = vv[b - 1].float().mean(dim=0)  # (K, hd)
-                row = got[b - 1, 0].float().reshape(kh, h // kh, hd)
-                if not torch.allclose(row, mean_v[:, None].expand_as(row),
-                                      rtol=t, atol=t):
-                    fail("all-masked slot does not return mean(V)")
+            err = _hold(f"decode_attention {label}", got, want, dtype,
+                        vv[b - 1] if kw.get("dead_slot") else None)
             if label == "cloud" and dtype == torch.bfloat16:
                 worst = err
-            print(f"  decode_attention {label} {str(dtype)[6:]}: max |err| "
-                  f"{err:.3g} (tol {t})")
-    # timing at the main path's shapes: both tiers, bf16, B=4, 384 of 512
-    for label, h, kh in (("edge", 12, 2), ("cloud", 28, 4)):
-        q, k, v, pq, pos, _ = _decode_case(4, h, kh, 128, 512, 384,
-                                           torch.bfloat16, gen)
-        kv, vv, pv = k[:, :384], v[:, :384], pos[:, :384]
-        ms = cuda_time_ms(lambda: decode_attention_cuda(q, kv, vv, pq, pv))
-        plain = cuda_time_ms(lambda: decode_attention_plain(q, kv, vv, pq, pv))
-        dd = pq[:, None] - pv
-        mask = ((pv >= 0) & (dd >= 0))[:, None, None, :]
-        qs, ks, vs = q.transpose(1, 2), kv.transpose(1, 2), vv.transpose(1, 2)
-        lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True))
-        b, t = 4, 384
-        nbytes = 2 * b * t * kh * 128 * 2 + 2 * b * h * 128 * 2 + b * t * 4
-        bd, by = bound_ms(nbytes, 4.0 * b * h * t * 128, "bfloat16")
-        print(f"  decode_attention {label} B=4 T=384 bf16: kernel "
-              f"{ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, sdpa "
-              f"{lib * 1e3:.2f} us, bound {bd * 1e3:.3f} us ({by})")
-        if label == "cloud":
-            records["decode_attention"] = {
-                "name": "decode_attention", "route": "cuda",
-                "source": "src/repro_torch/csrc/decode_attention.cu",
-                "replaces": "src/repro/kernels/decode_attention.py:146",
-                "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-                "bound_ms": bd, "bound_by": by, "library_ms": lib}
-
-
-def _paged_case(b, h, kh, hd, page, n_pt, t_ctx, dtype, gen, *, window=None,
-                dead_slot=False):
-    """Paged inputs: a shuffled page table over a pool with a null page 0;
-    each slot reserves only the pages its fill needs (tail entries map to
-    the null page), and the attended width may end mid-page."""
-    import torch
-
-    n_pages = b * n_pt + 1
-    kp = _rand((n_pages, page, kh, hd), dtype, gen)
-    vp = _rand((n_pages, page, kh, hd), dtype, gen)
-    q = _rand((b, 1, h, hd), dtype, gen)
-    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(
-        b * 1000 + t_ctx)) + 1
-    pages = perm[:b * n_pt].reshape(b, n_pt).to(torch.int32)
-    fill = t_ctx - 5
-    used = -(-fill // page)
-    pages[:, used:] = 0  # unreserved tail -> null page
-    pages = pages.cuda()
-    pos = torch.full((b, t_ctx), -1, dtype=torch.int32, device="cuda")
-    pos[:, :fill] = torch.arange(fill, dtype=torch.int32, device="cuda")
-    pq = torch.full((b,), fill - 1, dtype=torch.int32, device="cuda")
-    if dead_slot:
-        pos[b - 1] = -1
-        pages[b - 1] = 0
-    npg = -(-t_ctx // page)
-    return q, kp, vp, pages[:, :npg], pq, pos, window
+    for t in (384, 4096):
+        for label, h, kh in (("edge", 12, 2), ("cloud", 28, 4)):
+            time_decode(records, False, label, h, kh, t, worst, gen)
 
 
 def check_decode_paged(records):
@@ -297,7 +366,6 @@ def check_decode_paged(records):
     from repro_torch.kernels.decode_attention import (
         decode_attention_paged_cuda, decode_attention_paged_plain)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     cases = [
         # (label, b, h, kh, hd, page, n_pt, t_ctx, kwargs)
         ("edge", 4, 12, 2, 128, 64, 8, 384, {}),
@@ -306,47 +374,123 @@ def check_decode_paged(records):
          {"dead_slot": True}),
         ("hd32 reduced", 2, 4, 2, 32, 16, 4, 48, {}),
         ("window 64", 2, 8, 2, 64, 64, 4, 256, {"window": 64}),
+        ("T=1 page 16", 2, 8, 2, 128, 16, 2, 1, {"live": (0, 1)}),
+        ("T=33 page 16", 2, 12, 2, 128, 16, 4, 33, {}),
+        ("T=97 page 16", 2, 4, 1, 128, 16, 8, 97, {}),
+        # width 390 ends 6 rows into its last page of 16
+        ("cloud page 16 ends mid-page", 4, 28, 4, 128, 16, 32, 390, {}),
+        ("cloud page 64 ends mid-page", 4, 28, 4, 128, 64, 8, 390, {}),
+        ("cloud one live split", 4, 28, 4, 128, 64, 8, 512,
+         {"live": (208, 224)}),
+        ("cloud forced single split", 4, 28, 4, 128, 64, 8, 384,
+         {"split_rows": 512}),
+        ("cloud T=4096 page 64", 4, 28, 4, 128, 64, 64, 4096, {}),
+        ("cloud T=4096 all-masked slot", 4, 28, 4, 128, 64, 64, 4096,
+         {"dead_slot": True}),
     ]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for label, b, h, kh, hd, page, n_pt, tx, kw in cases:
-            q, kp, vp, pages, pq, pos, window = _paged_case(
+            kw = dict(kw)
+            rows = kw.pop("split_rows", None)
+            q, kp, vp, pages, pq, pos, window, _ = _paged_case(
                 b, h, kh, hd, page, n_pt, tx, dtype, gen, **kw)
             got = decode_attention_paged_cuda(q, kp, vp, pages, pq, pos,
-                                              window=window)
+                                              window=window, split_rows=rows)
             want = decode_attention_paged_plain(q, kp, vp, pages, pq, pos,
                                                 window=window)
             torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            t = tol[dtype]
-            if not torch.allclose(got.float(), want.float(), rtol=t, atol=t):
-                fail(f"decode_attention_paged {label} {dtype}: max |err| "
-                     f"{err}")
+            # a dead slot's table is all null page: its T rows are page 0's
+            dead = (vp[0].repeat(-(-tx // page), 1, 1)[:tx]
+                    if kw.get("dead_slot") else None)
+            err = _hold(f"decode_attention_paged {label}", got, want, dtype,
+                        dead)
             if label == "cloud" and dtype == torch.bfloat16:
                 worst = err
-            print(f"  decode_attention_paged {label} {str(dtype)[6:]}: max "
-                  f"|err| {err:.3g} (tol {t})")
-    for label, h, kh in (("edge", 12, 2), ("cloud", 28, 4)):
-        q, kp, vp, pages, pq, pos, _ = _paged_case(
-            4, h, kh, 128, 64, 8, 384, torch.bfloat16, gen)
-        ms = cuda_time_ms(lambda: decode_attention_paged_cuda(
-            q, kp, vp, pages, pq, pos))
-        plain = cuda_time_ms(lambda: decode_attention_paged_plain(
-            q, kp, vp, pages, pq, pos))
-        b, t = 4, 384
-        nbytes = (2 * b * t * kh * 128 * 2 + 2 * b * h * 128 * 2 + b * t * 4
-                  + pages.numel() * 4)
-        bd, by = bound_ms(nbytes, 4.0 * b * h * t * 128, "bfloat16")
-        print(f"  decode_attention_paged {label} B=4 T=384 bf16: kernel "
-              f"{ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, bound "
-              f"{bd * 1e3:.3f} us ({by})")
-        if label == "cloud":
-            records["decode_attention_paged"] = {
-                "name": "decode_attention_paged", "route": "cuda",
-                "source": "src/repro_torch/csrc/decode_attention.cu",
-                "replaces": "src/repro/kernels/decode_attention.py:78",
-                "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-                "bound_ms": bd, "bound_by": by, "library_ms": None}
+    for t in (384, 4096):
+        for label, h, kh in (("edge", 12, 2), ("cloud", 28, 4)):
+            time_decode(records, True, label, h, kh, t, worst, gen)
+
+
+def time_decode(records, paged, label, h, kh, t, worst, gen):
+    """Time one decode shape (B=4, bf16, hd 128) the way the decode loop
+    meets it: launches rotate over the layers of a stacked cache that does
+    not fit the 50 MB L2 (28 layers at the serving T=384 of 512; at T=4096
+    enough caches to pass 100 MB). Device time per call from a replayed
+    CUDA graph (the kernel, then SDPA on the same dense rows, in turns:
+    kernel, SDPA, SDPA, kernel), the eager wall per call beside it; the
+    graph's outputs must equal eager calls bitwise."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_paged_cuda,
+        decode_attention_paged_plain, decode_attention_plain)
+    b, hd, dt = 4, 128, torch.bfloat16
+    layer_bytes = 2 * b * t * kh * hd * 2
+    layers = 28 if t <= 512 else -(-100_000_000 // layer_bytes) + 1
+    if paged:
+        page = 64
+        q, _, _, pages, pq, pos, _, stack = _paged_case(
+            b, h, kh, hd, page, -(-t // page), t, dt, gen, layers=layers)
+        fns = [lambda i=i: decode_attention_paged_cuda(
+            q, stack[0, i], stack[1, i], pages, pq, pos)
+            for i in range(layers)]
+        plain = [lambda i=i: decode_attention_paged_plain(
+            q, stack[0, i], stack[1, i], pages, pq, pos)
+            for i in range(layers)]
+        # SDPA reads the same rows, gathered once into a dense cache
+        idx = pages.long()
+        dense = [stack[j, i][idx].reshape(b, -1, kh, hd)[:, :t]
+                 for i in range(layers) for j in (0, 1)]
+        kv = [(dense[2 * i], dense[2 * i + 1]) for i in range(layers)]
+    else:
+        tc = max(512, t)
+        q, _, _, pq, pos, _, stack = _decode_case(b, h, kh, hd, tc, t, dt,
+                                                  gen, layers=layers)
+        pos = pos[:, :t]
+        kv = [(stack[0, i][:, :t], stack[1, i][:, :t]) for i in range(layers)]
+        fns = [lambda i=i: decode_attention_cuda(q, *kv[i], pq, pos)
+               for i in range(layers)]
+        plain = [lambda i=i: decode_attention_plain(q, *kv[i], pq, pos)
+                 for i in range(layers)]
+    dd = pq[:, None] - pos
+    mask = ((pos >= 0) & (dd >= 0))[:, None, None, :]
+    qs = q.transpose(1, 2)
+    sdpa = [lambda i=i: F.scaled_dot_product_attention(
+        qs, kv[i][0].transpose(1, 2), kv[i][1].transpose(1, 2),
+        attn_mask=mask, enable_gqa=True) for i in range(layers)]
+    replays = max(10, -(-280 // layers))
+    k1, outs = graph_time_ms(fns, replays)
+    s1, _ = graph_time_ms(sdpa, replays)
+    s2, _ = graph_time_ms(sdpa, replays)
+    k2, _ = graph_time_ms(fns, replays)
+    for i, fn in enumerate(fns):
+        if not torch.equal(outs[i], fn()):
+            fail(f"decode {label} T={t}: graph replay differs from eager")
+    dev, lib = (k1 + k2) / 2, (s1 + s2) / 2
+    eager = eager_time_ms(fns, max(2, -(-100 // layers)))
+    plain_ms = (graph_time_ms(plain, 2)[0] if t <= 512 else None)
+    nbytes = 2 * b * t * kh * hd * 2 + 2 * b * h * hd * 2 + b * t * 4
+    if paged:
+        nbytes += pages.numel() * 4
+    bd, by = bound_ms(nbytes, 4.0 * b * h * t * hd, "bfloat16")
+    name = "decode_attention_paged" if paged else "decode_attention"
+    print(f"  {name} {label} B=4 T={t} bf16 ({layers} layers rotated): "
+          f"device {dev * 1e3:.2f} us ({k1 * 1e3:.2f}, {k2 * 1e3:.2f}), "
+          f"eager wall {eager * 1e3:.2f} us, sdpa device {lib * 1e3:.2f} us "
+          f"({s1 * 1e3:.2f}, {s2 * 1e3:.2f})"
+          + (f", plain device {plain_ms * 1e3:.2f} us" if plain_ms else "")
+          + f", bound {bd * 1e3:.3f} us ({by}), {bd / dev:.1%} of it")
+    if label == "cloud" and t <= 512:
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": ("src/repro/kernels/decode_attention.py:78" if paged
+                         else "src/repro/kernels/decode_attention.py:146"),
+            "max_abs_err": worst, "ms": dev, "device_ms": dev,
+            "eager_ms": eager, "plain_ms": plain_ms, "bound_ms": bd,
+            "bound_by": by, "library_ms": None if paged else lib}
 
 
 def _flash_case(b, s, h, kh, hd, dtype, gen, layout):
@@ -678,8 +822,8 @@ def main() -> None:
             rec.setdefault("launches", 0)
         order = ("name", "route", "source", "replaces", "launches",
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")
-        print(json.dumps({"kernels": [{k: rec[k] for k in order}
+                 "library_ms", "device_ms", "eager_ms")
+        print(json.dumps({"kernels": [{k: rec[k] for k in order if k in rec}
                                       for rec in records.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -1,5 +1,6 @@
 // One-token GQA decode attention over a dense or paged KV cache, for Hopper
-// (sm_90a). Plain C entry point, loaded with ctypes.
+// (sm_90a), as split-context flash-decoding. Plain C entry point, loaded
+// with ctypes.
 //
 // Replaces the TPU kernels decode_attention_pallas (dense cache) and
 // decode_attention_pallas_paged (page-table pool) of
@@ -12,21 +13,77 @@
 // the sliding window; masked scores take the finite value -1e30 (never
 // -inf), so a row whose T entries are all masked returns the mean of its T
 // value rows, exactly as the XLA path does. Entries past T are not attended.
-// Softmax runs online in f32; output = acc / max(l, 1e-30).
+// Softmax runs online in f32 and the probabilities stay f32 for the PV sum
+// (as in the Pallas body); output = acc / max(l, 1e-30).
 //
-// Bound on the card: decode reads each K and V row of the attended context
+// What bounds it: decode reads each K and V row of the attended context
 // once, 2 * B * T * K * hd * sizeof(dtype) bytes, and does about 4 flops per
-// element read, far below the ~295 flop/byte ridge of an H100: the kernel is
-// bound by memory bytes. Design: one block per (slot, KV head) holds all G
-// query heads of its group, so each K/V row crosses device memory once and
-// serves G heads. The context streams through shared memory in tiles of 32
-// rows (one warp-width, so each head's tile softmax is one warp reduction).
-// Rows are addressed by strides (dense: base + b*sb + t*st + h*sh; paged:
-// pages[b, t / page] * page_stride + (t % page) * row_stride + h*sh), which
-// takes a context-bucket view k[:, :teff] or a layer slice of the stacked
-// cache without a copy. The grid is only B*K blocks (8-16 at the serving
-// shapes) on 132 SMs; splitting the context across blocks (flash-decoding)
-// is the next step and is not done here.
+// element read, far below the ~295 flop/byte ridge of an H100, so the bytes
+// bound it, and at the serving contexts (T of a few hundred) the latency of
+// getting them. The design keeps many 16-byte copies in flight on every SM
+// and few instructions between them:
+//
+// * Split pass, grid (splits, K, B), 4 warps. A block covers the rows
+//   [s*R, min((s+1)*R, T)) of one (slot, KV head) for all G <= 8 query heads
+//   of the group, so each K/V row crosses device memory once. The wrapper
+//   picks R (a power of two >= 32) so that the grid fills the SMs.
+// * Loads. The rows stream through a 3-stage cp.async ring in shared
+//   memory: 16-byte copies, two stages in flight while the third is used.
+//   The copies are asynchronous and cost no registers. Data stay in their own
+//   type in shared memory (bf16 is never staged as f32) and become f32 in
+//   registers. The vector copies are taken only when every row start is
+//   16-byte aligned (the wrapper checks); otherwise the same slots are
+//   filled element by element. Positions come through the same ring.
+// * bf16 (the serving path). Each warp owns 8 rows of a stage and stages
+//   them itself, so the ring needs warp barriers, not block barriers.
+//   q.K^T runs on the tensor cores: mma.sync m16n8k16 with the G heads as
+//   the rows of the A operand (zero past G), q held as fragments in
+//   registers, K rows read as B fragments from a padded (conflict-free)
+//   tile. The products of bf16 values are exact in f32 and accumulate in
+//   f32, as in the plain version. A quad of lanes holds one head's scores,
+//   so the online softmax (f32) needs two shuffles for the max. The
+//   probabilities stay f32 and reach the PV sum through shared memory; there
+//   each lane owns HD/32 dims of every head and sums with f32 FMAs. A
+//   design with CUDA-core dot products for bf16 as well (the f32 scheme
+//   below) issues about 100 warp instructions per context row and holds
+//   168 registers; on an H100 it reached about a quarter of the byte bound
+//   at T=4096, B=4 (PERF.md).
+// * f32 (tests and reduced f32 engines; no TF32, which would not hold
+//   2e-5). A row's hd floats are read by hd/4 lanes, 16 bytes each, one
+//   online-softmax stream per lane group. The lanes' partial dot products
+//   are reduce-scattered over the row (each halving level keeps half the
+//   heads and sends the other half), so each lane ends with the full
+//   score of one head and runs its softmax; probabilities return to
+//   every lane by shuffles for the PV sum. Each thread stages exactly the
+//   chunks it reads, so this ring needs no barrier at all.
+// * Scores are scaled into the base-2 domain (hd^-0.5 * log2 e), so every
+//   exponential is one exp2.
+// * Dense and paged rows are a template parameter. Rows are found by the
+//   strides the wrapper passes (dense: base + b*sb + t*st + h*sh; paged:
+//   pages[b, t / page] * sb + (t % page) * st + h*sh), which takes a
+//   context-bucket view k[:, :T], a layer slice of the stacked cache, or the
+//   (P, page, K, hd) pool without a copy. A paged block copies the
+//   page-table entries of its split into shared memory once.
+// * Merge. Streams (f32) merge by warp shuffles, warps through shared
+//   memory. With one split the block writes the output; otherwise it writes
+//   its partial (m, l, acc[G][hd]) in f32 to a workspace the wrapper
+//   allocates, and a combine kernel, one block per (slot, query head),
+//   merges the splits: M = max m_s, out = sum 2^(m_s-M) acc_s /
+//   max(sum 2^(m_s-M) l_s, 1e-30). It is a programmatic dependent launch:
+//   set up while the split grid runs, it waits for it in griddepcontrol.wait.
+//
+// Masked and all-masked rows stay exact. A masked score is -1e30 and m
+// starts at -1e30, so a masked entry weighs 2^0 = 1 as long as nothing is
+// attended and 2^(-1e30 - m) = 0 once something is; an entry outside the
+// split's rows (or past T) is excluded outright (weight 0, not in the max)
+// and its slot holds zeros. Every split holds at least one row below T, so
+// on a slot whose entries are all masked every split has m = -1e30 and
+// weight 1 in the merge, and the output is the mean of the T value rows, as
+// in the XLA path. A stream or warp that received no row has l = 0 and
+// acc = 0 and adds nothing.
+//
+// The C code allocates nothing and never synchronises, so a launch can be
+// captured in a CUDA graph.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,181 +92,712 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTile = 32;  // context rows per tile == warp size
-constexpr int kMaxG = 8;   // query heads per KV head
-constexpr int kMaxHd = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxG = 8;     // query heads per KV head
+constexpr int kStages = 3;   // pipeline stages in flight (cp.async ring)
+constexpr int kRows = 4;     // f32 kernel: rows of a stream in one stage
+constexpr int kWarpRows = 8; // bf16 kernel: rows of a warp in one stage
+constexpr int kMaxSplitPages = 256;
 constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+struct Args {
+  const void* q;        // (B, 1, H, hd) contiguous
+  const void* k;        // dense (B, >=T, K, hd) or paged (P, page, K, hd)
+  const void* v;
+  const int* pos_q;     // (B,)
+  const int* pos_c;     // (B, >=T), row stride pc_sb
+  const int* pages;     // (B, >=ceil(T/page)), row stride pg_sb (paged only)
+  void* out;            // (B, 1, H, hd) contiguous
+  float* ws_acc;        // (B, H, splits, hd) partial sums (splits > 1)
+  float* ws_ml;         // (B, H, splits, 2): m (base 2), l
+  int H, K, hd, T, page, page_shift, window, rows, splits, vec;
+  int64_t k_sb, k_st, k_sh, v_sb, v_st, v_sh;  // element strides
+  int64_t pc_sb, pg_sb;
+  float scale2;         // hd^-0.5 * log2(e)
+};
+
+__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
 }
+
+// element i of 4 floats in a 16-byte vector
+__device__ __forceinline__ float elem(const uint4& r, int i) {
+  return __uint_as_float(word(r, i));
+}
+
+// 16 bytes from p: one vector load when aligned, else element by element
+__device__ __forceinline__ uint4 load16(const float* p, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  return make_uint4(__float_as_uint(p[0]), __float_as_uint(p[1]),
+                    __float_as_uint(p[2]), __float_as_uint(p[3]));
+}
+__device__ __forceinline__ uint4 load16(const __nv_bfloat16* p, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+  return make_uint4(u[0] | ((uint32_t)u[1] << 16), u[2] | ((uint32_t)u[3] << 16),
+                    u[4] | ((uint32_t)u[5] << 16), u[6] | ((uint32_t)u[7] << 16));
+}
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-struct Args {
-  const void* q;        // (B, 1, H, hd) contiguous
-  const void* k;        // dense (B, T, K, hd) or paged (P, page, K, hd), strided
-  const void* v;
-  const int* pos_q;     // (B,)
-  const int* pos_c;     // (B, >=T), row stride pc_sb
-  const int* pages;     // (B, >=ceil(T/page)), row stride pg_sb; null = dense
-  void* out;            // (B, 1, H, hd) contiguous
-  int H, K, hd, T, page, window;
-  int64_t k_sb, k_st, k_sh, v_sb, v_st, v_sh;  // element strides
-  int64_t pc_sb, pg_sb;
-  float scale;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// global -> shared, asynchronous (16 or 4 bytes); the "memory" clobbers keep
+// the compiler from moving shared-memory reads across the wait
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// N = 1, 2 or 4 bf16 from shared memory (aligned to their size) as f32
+template <int N>
+__device__ __forceinline__ void load_bf16(const unsigned short* p, float* out) {
+  if constexpr (N == 4) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    out[0] = __uint_as_float(w.x << 16);
+    out[1] = __uint_as_float(w.x & 0xffff0000u);
+    out[2] = __uint_as_float(w.y << 16);
+    out[3] = __uint_as_float(w.y & 0xffff0000u);
+  } else if constexpr (N == 2) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+    out[0] = __uint_as_float(w << 16);
+    out[1] = __uint_as_float(w & 0xffff0000u);
+  } else {
+    out[0] = __uint_as_float((uint32_t)*p << 16);
+  }
+}
+
+// The split's rows and, paged, its page-table entries staged in shared memory.
+struct Split {
+  int t_begin, n_rows, p0;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) decode_kernel(Args a) {
-  __shared__ float q_s[kMaxG][kMaxHd];
-  __shared__ float k_s[kTile][kMaxHd + 1];  // +1: conflict-free column reads
-  __shared__ float v_s[kTile][kMaxHd];
-  __shared__ float p_s[kMaxG][kTile];
-  __shared__ int state_s[kTile];  // 0 past T, 1 masked, 2 attended
-  __shared__ float m_s[kMaxG], l_s[kMaxG], corr_s[kMaxG];
+template <bool PAGED>
+__device__ __forceinline__ Split begin_split(const Args& a, int split, int b, int* pg_s) {
+  Split sp;
+  sp.t_begin = split * a.rows;
+  const int t_end = min(sp.t_begin + a.rows, a.T);
+  sp.n_rows = t_end - sp.t_begin;
+  sp.p0 = 0;
+  if (PAGED) {
+    sp.p0 = sp.t_begin / a.page;
+    const int np = (t_end - 1) / a.page - sp.p0 + 1;
+    const int* pt = a.pages + (int64_t)b * a.pg_sb + sp.p0;
+    for (int i = threadIdx.x; i < np; i += kThreads) pg_s[i] = pt[i];
+    __syncthreads();
+  }
+  return sp;
+}
 
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int hd = a.hd;
+// element offsets of K and V row t of KV head kh (dense or through the pages)
+template <bool PAGED>
+__device__ __forceinline__ void row_offsets(const Args& a, const Split& sp, const int* pg_s,
+                                            int b, int kh, int t, int64_t& kb, int64_t& vb) {
+  if (PAGED) {
+    const int lp = a.page_shift >= 0 ? t >> a.page_shift : t / a.page;
+    const int64_t pg = pg_s[lp - sp.p0];
+    const int64_t off = t - lp * a.page;
+    kb = pg * a.k_sb + off * a.k_st + (int64_t)kh * a.k_sh;
+    vb = pg * a.v_sb + off * a.v_st + (int64_t)kh * a.v_sh;
+  } else {
+    kb = (int64_t)b * a.k_sb + (int64_t)t * a.k_st + (int64_t)kh * a.k_sh;
+    vb = (int64_t)b * a.v_sb + (int64_t)t * a.v_st + (int64_t)kh * a.v_sh;
+  }
+}
+
+// 0: excluded (past the split or T), 1: masked (score -1e30), 2: attended
+__device__ __forceinline__ int row_state(const Args& a, bool in, int p, int pq) {
+  if (!in) return 0;
+  const int d = pq - p;
+  return (p >= 0 && d >= 0 && (a.window <= 0 || d < a.window)) ? 2 : 1;
+}
+
+// The warps' partials (acc[w][g][d], m[w][g], l[w][g], in shared memory)
+// merge into the split's result: the output with one split, else the
+// workspace row (m, l, acc) of this split.
+template <typename T, int HD>
+__device__ __forceinline__ void finish_split(const Args& a, const float* acc_s,
+                                             const float* m_s, const float* l_s,
+                                             int split, int b, int kh, int G) {
+  const int64_t head0 = (int64_t)b * a.H + (int64_t)kh * G;
+  for (int e = threadIdx.x; e < G * HD; e += kThreads) {
+    const int g = e / HD, d = e - g * HD;
+    float mm = m_s[g];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) mm = fmaxf(mm, m_s[w * kMaxG + g]);
+    float lsum = 0.f, asum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = exp2f(m_s[w * kMaxG + g] - mm);
+      lsum += wt * l_s[w * kMaxG + g];
+      asum += wt * acc_s[(w * kMaxG + g) * HD + d];
+    }
+    if (a.splits == 1) {
+      store(static_cast<T*>(a.out) + (head0 + g) * HD + d, asum / fmaxf(lsum, 1e-30f));
+    } else {
+      const int64_t row = (head0 + g) * a.splits + split;
+      a.ws_acc[row * HD + d] = asum;
+      if (d == 0) {
+        a.ws_ml[row * 2] = mm;
+        a.ws_ml[row * 2 + 1] = lsum;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: q.K^T on the tensor cores, softmax and PV in f32
+// ---------------------------------------------------------------------------
+
+// Shared memory of the bf16 kernel. Warp w stages and reads only its own
+// rows of each stage, so the ring needs warp barriers, not block barriers.
+template <int HD>
+struct SmemBf16 {
+  static constexpr int LD = HD + 8;  // padded row: conflict-free B fragments
+  union {
+    unsigned short ring[kStages][kWarps][2][kWarpRows][LD];  // bf16 [..][k|v][row][dim]
+    struct {  // after the last stage: the warps' partials
+      float acc[kWarps][kMaxG][HD];
+      float m[kWarps][kMaxG], l[kWarps][kMaxG];
+    } merge;
+  };
+  int pos[kStages][kWarps][kWarpRows];
+  float p[kWarps][kMaxG][kWarpRows];  // probabilities of the warp's rows
+  float corr[kWarps][kMaxG];
+  int pages[kMaxSplitPages];
+};
+
+// Grid (splits, K, B), 4 warps. A stage is 8 rows a warp; lane (n, q) with
+// n = lane / 4, q = lane % 4 holds the scores of head n for rows 2q, 2q + 1
+// (the m16n8 accumulator; heads 8-15 of the 16-row A operand are zero).
+// For the PV sum lane l owns dims [l * HD/32, (l+1) * HD/32) of every head.
+template <int HD, bool PAGED>
+__global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
+  using S = SmemBf16<HD>;
+  constexpr int LD = S::LD;
+  constexpr int KS = HD / 16;          // k-steps of the QK product
+  constexpr int DPL = HD / 32;         // dims a lane owns in the PV sum
+  constexpr int CPR = HD / 8;          // 16-byte chunks a row
+  constexpr int TILE = kWarps * kWarpRows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S& sm = *reinterpret_cast<S*>(smem_raw);
+
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = lane >> 2, kq = (lane & 3) * 2;
   const int G = a.H / a.K;
-  const int gh = G * hd;
-
-  const T* q = static_cast<const T*>(a.q) + ((int64_t)b * a.H + (int64_t)kh * G) * hd;
-  for (int i = tid; i < gh; i += kThreads) q_s[i / hd][i % hd] = to_f32(q[i]);
-  if (tid < G) {
-    m_s[tid] = kMasked;
-    l_s[tid] = 0.f;
-  }
-  float acc[kMaxG];
-#pragma unroll
-  for (int j = 0; j < kMaxG; ++j) acc[j] = 0.f;
-
-  const T* kp = static_cast<const T*>(a.k);
-  const T* vp = static_cast<const T*>(a.v);
-  const int pq = a.pos_q[b];
+  const bool vec = a.vec != 0;
+  const Split sp = begin_split<PAGED>(a, split, b, sm.pages);
+  const int n_tiles = (sp.n_rows + TILE - 1) / TILE;
+  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v);
   const int* pc = a.pos_c + (int64_t)b * a.pc_sb;
-  const int* pt = a.pages ? a.pages + (int64_t)b * a.pg_sb : nullptr;
 
-  for (int t0 = 0; t0 < a.T; t0 += kTile) {
-    if (tid < kTile) {
-      const int t = t0 + tid;
-      int st = 0;
-      if (t < a.T) {
-        const int p = pc[t];
-        const int d = pq - p;
-        const bool ok = p >= 0 && d >= 0 && (a.window <= 0 || d < a.window);
-        st = ok ? 2 : 1;
-      }
-      state_s[tid] = st;
-    }
-    for (int i = tid; i < kTile * hd; i += kThreads) {
-      const int r = i / hd, d = i - r * hd;
-      const int t = t0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (t < a.T) {
+  // stage this warp's rows of tile j: lane copies chunk lane % CPR of rows
+  // lane / CPR + i * 32 / CPR, K and V; lanes 0-7 copy the positions
+  auto fetch = [&](int j) {
+    const int stage = j % kStages;
+    const int c = lane % CPR;
+#pragma unroll
+    for (int i = 0; i < CPR / 4; ++i) {
+      const int rr = lane / CPR + i * (32 / CPR);
+      const int r = j * TILE + warp * kWarpRows + rr;
+      unsigned short* ks = &sm.ring[stage][warp][0][rr][c * 8];
+      unsigned short* vs = &sm.ring[stage][warp][1][rr][c * 8];
+      if (r < sp.n_rows) {
         int64_t kb, vb;
-        if (pt) {
-          const int64_t pg = pt[t / a.page];
-          const int64_t off = t % a.page;
-          kb = pg * a.k_sb + off * a.k_st + (int64_t)kh * a.k_sh;
-          vb = pg * a.v_sb + off * a.v_st + (int64_t)kh * a.v_sh;
+        row_offsets<PAGED>(a, sp, sm.pages, b, kh, sp.t_begin + r, kb, vb);
+        if (vec) {
+          cp_async16(ks, kp + kb + c * 8);
+          cp_async16(vs, vp + vb + c * 8);
         } else {
-          kb = (int64_t)b * a.k_sb + (int64_t)t * a.k_st + (int64_t)kh * a.k_sh;
-          vb = (int64_t)b * a.v_sb + (int64_t)t * a.v_st + (int64_t)kh * a.v_sh;
+          *reinterpret_cast<uint4*>(ks) = load16(kp + kb + c * 8, false);
+          *reinterpret_cast<uint4*>(vs) = load16(vp + vb + c * 8, false);
         }
-        kv = to_f32(kp[kb + d]);
-        vv = to_f32(vp[vb + d]);
-      }
-      k_s[r][d] = kv;
-      v_s[r][d] = vv;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * kTile; i += kThreads) {
-      const int g = i / kTile, r = i - g * kTile;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s += q_s[g][d] * k_s[r][d];
-      s *= a.scale;
-      p_s[g][r] = state_s[r] == 1 ? kMasked : s;
-    }
-    __syncthreads();
-
-    // online softmax update, one warp per query head
-    for (int g = warp; g < G; g += kThreads / 32) {
-      const bool in = state_s[lane] != 0;
-      const float s = p_s[g][lane];
-      float mx = in ? s : -3.0e38f;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float p = in ? expf(s - m_new) : 0.f;
-      float sum = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      p_s[g][lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        corr_s[g] = corr;
-        m_s[g] = m_new;
-        l_s[g] = l_s[g] * corr + sum;
+      } else {  // past the split: zeros, so no stale bits reach the sums
+        *reinterpret_cast<uint4*>(ks) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(vs) = make_uint4(0, 0, 0, 0);
       }
     }
-    __syncthreads();
-
+    const int r = j * TILE + warp * kWarpRows + lane;
+    if (lane < kWarpRows && r < sp.n_rows) cp_async4(&sm.pos[stage][warp][lane], pc + sp.t_begin + r);
+  };
 #pragma unroll
-    for (int j = 0; j < kMaxG; ++j) {
-      const int e = tid + j * kThreads;
-      if (e < gh) {
-        const int g = e / hd, d = e - g * hd;
-        float s = 0.f;
-        for (int r = 0; r < kTile; ++r) s += p_s[g][r] * v_s[r][d];
-        acc[j] = acc[j] * corr_s[g] + s;
-      }
-    }
-    __syncthreads();
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < n_tiles) fetch(j);
+    cp_async_commit();
   }
+  asm volatile("griddepcontrol.launch_dependents;\n");  // the combine may launch
 
-  T* out = static_cast<T*>(a.out) + ((int64_t)b * a.H + (int64_t)kh * G) * hd;
+  // A operand: row n = head n of the group (zero past G), bf16 as in q
+  const int pq = a.pos_q[b];
+  uint32_t qa[KS][4];
+  {
+    const unsigned short* qh = reinterpret_cast<const unsigned short*>(a.q) +
+                               ((int64_t)b * a.H + (int64_t)kh * G + n) * HD;
 #pragma unroll
-  for (int j = 0; j < kMaxG; ++j) {
-    const int e = tid + j * kThreads;
-    if (e < gh) store(out + e, acc[j] / fmaxf(l_s[e / hd], 1e-30f));
+    for (int ks = 0; ks < KS; ++ks) {
+      const int d = ks * 16 + kq;
+      qa[ks][0] = n < G ? (qh[d] | ((uint32_t)qh[d + 1] << 16)) : 0u;
+      qa[ks][2] = n < G ? (qh[d + 8] | ((uint32_t)qh[d + 9] << 16)) : 0u;
+      qa[ks][1] = qa[ks][3] = 0u;
+    }
   }
+  float m = kMasked, l = 0.f;  // head n's running max and (partial) sum
+  float acc[kMaxG][DPL];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g)
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + kStages - 1 < n_tiles) fetch(it + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncwarp();  // the warp's copies of tile `it` are visible to all its lanes
+    const int stage = it % kStages;
+    const unsigned short* ks = &sm.ring[stage][warp][0][0][0];
+    const unsigned short* vs = &sm.ring[stage][warp][1][0][0];
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const unsigned short* kr = ks + n * LD + s * 16 + kq;
+      mma_bf16(c, qa[s], *reinterpret_cast<const uint32_t*>(kr),
+               *reinterpret_cast<const uint32_t*>(kr + 8));
+    }
+    // online softmax of head n over rows kq, kq + 1 (a quad shares a head)
+    const int r0 = it * TILE + warp * kWarpRows + kq;
+    const int st0 = row_state(a, r0 < sp.n_rows, sm.pos[stage][warp][kq], pq);
+    const int st1 = row_state(a, r0 + 1 < sp.n_rows, sm.pos[stage][warp][kq + 1], pq);
+    const float s0 = st0 == 1 ? kMasked : c[0] * a.scale2;
+    const float s1 = st1 == 1 ? kMasked : c[1] * a.scale2;
+    float mx = m;
+    if (st0) mx = fmaxf(mx, s0);
+    if (st1) mx = fmaxf(mx, s1);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float corr = exp2f(m - mx);
+    const float p0 = st0 ? exp2f(s0 - mx) : 0.f;
+    const float p1 = st1 ? exp2f(s1 - mx) : 0.f;
+    l = l * corr + p0 + p1;
+    m = mx;
+    *reinterpret_cast<float2*>(&sm.p[warp][n][kq]) = make_float2(p0, p1);
+    if (kq == 0) sm.corr[warp][n] = corr;
+    __syncwarp();
+    // PV in f32: lane's dims of the warp's 8 value rows
+    float vf[kWarpRows][DPL];
+#pragma unroll
+    for (int rr = 0; rr < kWarpRows; ++rr) load_bf16<DPL>(vs + rr * LD + lane * DPL, vf[rr]);
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g < G) {
+        const float cg = sm.corr[warp][g];
+        const float4 pa = *reinterpret_cast<const float4*>(&sm.p[warp][g][0]);
+        const float4 pb = *reinterpret_cast<const float4*>(&sm.p[warp][g][4]);
+        const float pr[kWarpRows] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          float x = acc[g][i] * cg;
+#pragma unroll
+          for (int rr = 0; rr < kWarpRows; ++rr) x = fmaf(pr[rr], vf[rr][i], x);
+          acc[g][i] = x;
+        }
+      }
+    }
+    __syncwarp();  // p, corr and this stage are free for the next tile
+  }
+  cp_async_wait<0>();
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  __syncthreads();  // the merge buffers overlay every warp's ring
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g)
+    if (g < G)
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) sm.merge.acc[warp][g][lane * DPL + i] = acc[g][i];
+  if (kq == 0) {
+    sm.merge.m[warp][n] = m;
+    sm.merge.l[warp][n] = l;
+  }
+  __syncthreads();
+  finish_split<__nv_bfloat16, HD>(a, &sm.merge.acc[0][0][0], &sm.merge.m[0][0],
+                                  &sm.merge.l[0][0], split, b, kh, G);
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA-core FMAs (no TF32), lanes split a row's dims
+// ---------------------------------------------------------------------------
+
+// Shared memory of the f32 kernel. The ring is private to each thread: a
+// thread stages exactly the 16-byte chunks it reads itself, so the main loop
+// needs no barrier, only cp.async.wait_group.
+template <int HD>
+struct SmemF32 {
+  uint4 kv[kStages][kRows][2][kThreads];  // [stage][row][k|v][thread]
+  int pos[kStages][kRows][kThreads];
+  float acc[kWarps][kMaxG][HD];            // warp partials for the merge
+  float m[kWarps][kMaxG], l[kWarps][kMaxG];
+  int pages[kMaxSplitPages];
+};
+
+// Grid (splits, K, B), 4 warps. A row's HD floats are read by LPR = HD/4
+// lanes, 16 bytes each; a warp holds 32/LPR rows at once, one online-softmax
+// stream per lane group. A score is the lanes' partial dot products of the
+// 8 (padded) heads, reduce-scattered over the row's lanes: three halving
+// levels (offsets LPR/2, LPR/4, LPR/8) each keep half the heads and send the
+// other half, so each lane ends with the full score of one head and runs
+// its softmax; the probabilities are broadcast back by shuffles for the PV
+// sum.
+template <int HD, bool PAGED>
+__global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
+  constexpr int VEC = 4;
+  constexpr int LPR = HD / VEC;          // lanes per row: 8, 16 or 32
+  constexpr int RPW = 32 / LPR;          // rows (streams) per warp
+  constexpr int NS = kWarps * RPW;       // streams per block
+  constexpr int TILE = NS * kRows;       // rows per pipeline stage
+  static_assert(LPR >= kMaxG, "three halving levels need 8 lanes a row");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemF32<HD>& sm = *reinterpret_cast<SmemF32<HD>*>(smem_raw);
+
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int sid = warp * RPW + lane / LPR;   // this lane's stream
+  const int lir = lane % LPR;                // lane in its row
+  const int row_lane0 = lane - lir;
+  const int dim0 = lir * VEC;                // first of this lane's dims
+  const int G = a.H / a.K;
+  const bool vec = a.vec != 0;
+  const Split sp = begin_split<PAGED>(a, split, b, sm.pages);
+  const int n_tiles = (sp.n_rows + TILE - 1) / TILE;
+  const float* kp = static_cast<const float*>(a.k);
+  const float* vp = static_cast<const float*>(a.v);
+  const int* pc = a.pos_c + (int64_t)b * a.pc_sb;
+
+  auto fetch = [&](int j) {
+    const int stage = j % kStages;
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const int r = j * TILE + u * NS + sid;
+      uint4* ks = &sm.kv[stage][u][0][tid];
+      uint4* vs = &sm.kv[stage][u][1][tid];
+      if (r < sp.n_rows) {
+        int64_t kb, vb;
+        row_offsets<PAGED>(a, sp, sm.pages, b, kh, sp.t_begin + r, kb, vb);
+        if (vec) {
+          cp_async16(ks, kp + kb + dim0);
+          cp_async16(vs, vp + vb + dim0);
+        } else {
+          *ks = load16(kp + kb + dim0, false);
+          *vs = load16(vp + vb + dim0, false);
+        }
+        cp_async4(&sm.pos[stage][u][tid], pc + sp.t_begin + r);
+      } else {  // past the split: zeros, so no stale bits reach the sums
+        *ks = make_uint4(0, 0, 0, 0);
+        *vs = make_uint4(0, 0, 0, 0);
+      }
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < n_tiles) fetch(j);
+    cp_async_commit();
+  }
+  asm volatile("griddepcontrol.launch_dependents;\n");  // the combine may launch
+
+  const int pq = a.pos_q[b];
+  const float* qp = static_cast<const float*>(a.q) + ((int64_t)b * a.H + (int64_t)kh * G) * HD;
+  float q[kMaxG][VEC];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+    const uint4 r = g < G ? load16(qp + g * HD + dim0, vec) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) q[g][i] = elem(r, i);
+  }
+  // the lane of this row that holds head g after the reduce-scatter
+  auto src = [&](int g) {
+    return row_lane0 + (g >> 2 & 1) * (LPR / 2) + (g >> 1 & 1) * (LPR / 4) + (g & 1) * (LPR / 8);
+  };
+
+  float m = kMasked, l = 0.f;  // this lane's head
+  float acc[kMaxG][VEC];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + kStages - 1 < n_tiles) fetch(it + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // this thread's copies of tile `it` landed
+    const int stage = it % kStages;
+    float s[kRows];
+    int st[kRows];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const int r = it * TILE + u * NS + sid;
+      st[u] = row_state(a, r < sp.n_rows, sm.pos[stage][u][tid], pq);
+      const uint4 kr = sm.kv[stage][u][0][tid];
+      float v[kMaxG];
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        float dot = 0.f;
+        if (g < G) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) dot = fmaf(q[g][i], elem(kr, i), dot);
+        }
+        v[g] = dot;
+      }
+#pragma unroll
+      for (int lv = 0; lv < 3; ++lv) {
+        const int o = LPR >> (lv + 1);
+        const int half = kMaxG >> (lv + 1);
+        const bool hi = (lir & o) != 0;
+#pragma unroll
+        for (int j = 0; j < half; ++j) {
+          const float send = hi ? v[j] : v[j + half];
+          const float keep = hi ? v[j + half] : v[j];
+          v[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+        }
+      }
+#pragma unroll
+      for (int o = LPR / 16; o > 0; o >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+      s[u] = st[u] == 1 ? kMasked : v[0] * a.scale2;
+    }
+    // online softmax of this lane's head, f32; s becomes p
+    float mx = m;
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) if (st[u]) mx = fmaxf(mx, s[u]);
+    const float corr = exp2f(m - mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      s[u] = st[u] ? exp2f(s[u] - mx) : 0.f;
+      sum += s[u];
+    }
+    m = mx;
+    l = l * corr + sum;
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      const float cg = __shfl_sync(0xffffffffu, corr, src(g));
+      if (g < G) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[g][i] *= cg;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const uint4 vr = sm.kv[stage][u][1][tid];
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        const float pg = __shfl_sync(0xffffffffu, s[u], src(g));
+        if (g < G) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(pg, elem(vr, i), acc[g][i]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // every lane of a row takes (m, l) of all heads, then the streams of a
+  // warp merge (lane groups LPR apart hold the same dims)
+  float mg[kMaxG], lg[kMaxG];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+    mg[g] = __shfl_sync(0xffffffffu, m, src(g));
+    lg[g] = __shfl_sync(0xffffffffu, l, src(g));
+  }
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, mg[g], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, lg[g], o);
+      const float mm = fmaxf(mg[g], mo);
+      const float wa = exp2f(mg[g] - mm), wb = exp2f(mo - mm);
+      lg[g] = lg[g] * wa + lo * wb;
+      mg[g] = mm;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][i], o);
+        acc[g][i] = acc[g][i] * wa + ao * wb;
+      }
+    }
+  }
+  if (lane < LPR) {
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g < G) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) sm.acc[warp][g][dim0 + i] = acc[g][i];
+        if (lane == 0) {
+          sm.m[warp][g] = mg[g];
+          sm.l[warp][g] = lg[g];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  finish_split<float, HD>(a, &sm.acc[0][0][0], &sm.m[0][0], &sm.l[0][0], split, b, kh, G);
+}
+
+// one block per (query head, slot), one thread per dim: merge the splits
+// online, 8 splits' loads in flight at a time
+template <typename T>
+__global__ void combine_kernel(Args a) {
+  constexpr int C = 8;
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int64_t row = (int64_t)b * a.H + h;
+  const float* ml = a.ws_ml + row * a.splits * 2;
+  const float* acc = a.ws_acc + row * a.splits * a.hd + d;
+  // launched as a programmatic dependent of the split kernel: wait until
+  // its grid has finished and its writes are visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  float mm = kMasked, lsum = 0.f, asum = 0.f;
+  for (int s0 = 0; s0 < a.splits; s0 += C) {
+    float ms[C], ls[C], as[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {  // a split past the last adds l = acc = 0
+      const bool in = s0 + i < a.splits;
+      ms[i] = in ? ml[2 * (s0 + i)] : kMasked;
+      ls[i] = in ? ml[2 * (s0 + i) + 1] : 0.f;
+      as[i] = in ? acc[(int64_t)(s0 + i) * a.hd] : 0.f;
+    }
+    float cm = mm;
+#pragma unroll
+    for (int i = 0; i < C; ++i) cm = fmaxf(cm, ms[i]);
+    const float corr = exp2f(mm - cm);
+    lsum *= corr;
+    asum *= corr;
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const float wt = exp2f(ms[i] - cm);
+      lsum += wt * ls[i];
+      asum += wt * as[i];
+    }
+    mm = cm;
+  }
+  store(static_cast<T*>(a.out) + row * a.hd + d, asum / fmaxf(lsum, 1e-30f));
+}
+
+// Above 48 KB of shared memory a kernel must opt in: once per kernel and
+// device (no stream work, so a capture is not disturbed). On failure the
+// launch fails and reports it.
+template <void (*Kernel)(Args), size_t kSmem>
+void launch_dyn(const Args& a, dim3 grid, cudaStream_t s) {
+  static unsigned done = 0;  // a bit per device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 32 || !(done >> dev & 1u)) {
+    if (cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kSmem) == cudaSuccess && dev < 32)
+      done |= 1u << dev;
+  }
+  Kernel<<<grid, kThreads, kSmem, s>>>(a);
+}
+
+template <int HD, bool PAGED>
+void launch_split(int dtype, const Args& a, dim3 grid, cudaStream_t s) {
+  if (dtype == 1)
+    launch_dyn<decode_bf16_kernel<HD, PAGED>, sizeof(SmemBf16<HD>)>(a, grid, s);
+  else
+    launch_dyn<decode_f32_kernel<HD, PAGED>, sizeof(SmemF32<HD>)>(a, grid, s);
+}
+
+int launch(int dtype, const Args& a, int B, cudaStream_t s, bool paged) {
+  const dim3 grid(a.splits, a.K, B);
+  switch (a.hd * 2 + (paged ? 1 : 0)) {
+    case 64: launch_split<32, false>(dtype, a, grid, s); break;
+    case 65: launch_split<32, true>(dtype, a, grid, s); break;
+    case 128: launch_split<64, false>(dtype, a, grid, s); break;
+    case 129: launch_split<64, true>(dtype, a, grid, s); break;
+    case 256: launch_split<128, false>(dtype, a, grid, s); break;
+    case 257: launch_split<128, true>(dtype, a, grid, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (a.splits > 1) {
+    // programmatic dependent launch: the combine grid is set up while the
+    // split grid runs, and waits for it in griddepcontrol.wait
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.H, B);
+    cfg.blockDim = dim3(a.hd);
+    cfg.stream = s;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = dtype == 1 ? cudaLaunchKernelEx(&cfg, combine_kernel<__nv_bfloat16>, a)
+                                     : cudaLaunchKernelEx(&cfg, combine_kernel<float>, a);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. pages == nullptr selects the dense cache.
-// Returns cudaGetLastError() after the launch (0 = success).
+// rows: context rows per split; splits = ceil(T / rows). ws: with splits > 1,
+// B * H * splits * (hd + 2) floats of workspace (unused with one split).
+// vec: 1 if q, k, v rows all start 16-byte aligned. Launches the split
+// kernel and, with splits > 1, the combine kernel on `stream`, and returns
+// cudaGetLastError() after them (0 = success).
 extern "C" int decode_attention_launch(
     int dtype, const void* q, const void* k, const void* v, const int* pos_q,
-    const int* pos_c, const int* pages, void* out, int B, int H, int K, int hd,
-    int T, int page, int window, int64_t k_sb, int64_t k_st, int64_t k_sh,
-    int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t pc_sb, int64_t pg_sb,
-    float scale, void* stream) {
+    const int* pos_c, const int* pages, void* out, float* ws, int B, int H,
+    int K, int hd, int T, int page, int window, int rows, int vec,
+    int64_t k_sb, int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,
+    int64_t v_sh, int64_t pc_sb, int64_t pg_sb, float scale, void* stream) {
+  if (B <= 0 || T <= 0 || rows <= 0 || K <= 0 || H % K || H / K > kMaxG)
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.pos_q = pos_q; a.pos_c = pos_c;
   a.pages = pages; a.out = out;
   a.H = H; a.K = K; a.hd = hd; a.T = T; a.page = page; a.window = window;
+  a.rows = rows; a.splits = (T + rows - 1) / rows; a.vec = vec;
+  a.page_shift = -1;
+  if (pages) {
+    if (page <= 0 || (rows + page - 1) / page + 1 > kMaxSplitPages)
+      return (int)cudaErrorInvalidValue;
+    if ((page & (page - 1)) == 0) {
+      a.page_shift = 0;
+      while ((1 << a.page_shift) < page) ++a.page_shift;
+    }
+  }
+  if (a.splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  a.ws_acc = ws;
+  a.ws_ml = ws ? ws + (int64_t)B * H * a.splits * hd : nullptr;
   a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
   a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
-  a.pc_sb = pc_sb; a.pg_sb = pg_sb; a.scale = scale;
-  const dim3 grid(K, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    decode_kernel<float><<<grid, kThreads, 0, s>>>(a);
-  } else if (dtype == 1) {
-    decode_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  a.pc_sb = pc_sb; a.pg_sb = pg_sb; a.scale2 = scale * kLog2e;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const int err = launch(dtype, a, B, static_cast<cudaStream_t>(stream), pages != nullptr);
+  if (err) return err;
   return (int)cudaGetLastError();
 }

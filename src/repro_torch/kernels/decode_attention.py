@@ -9,13 +9,17 @@ Replaces ``repro/kernels/decode_attention.py``: ``decode_attention_pallas``
 included: a row whose attended entries are all masked returns the mean of
 its value rows (the fill is the finite -1e30).
 
-Decode attention is bound by the bytes of the KV context it reads; the
-kernel reads each row once, staged through shared memory, for all query
-heads of a KV group (see the note in the CUDA source).
+Decode attention is bound by the bytes of the KV context it reads. The
+kernel splits the context across blocks (flash-decoding): each block reads
+its rows once, with 16-byte loads, for all query heads of a KV group, and
+a combine kernel merges the splits' partial softmax sums (see the note in
+the CUDA source). ``decode_attention_split_plain`` is that split-and-merge
+arithmetic in plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -25,6 +29,8 @@ from repro_torch.kernels import runtime
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8  # query heads per KV head the kernel holds
+MIN_SPLIT_ROWS, MAX_SPLIT_ROWS = 32, 1024  # context rows per split
+MAX_SPLIT_PAGES = 256  # page-table entries a split stages (kMaxSplitPages)
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -77,6 +83,70 @@ def decode_attention_paged_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                   window=window)
 
 
+def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor, pos_q: torch.Tensor,
+                                 pos_cache: torch.Tensor, *, split_rows: int,
+                                 window: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """The CUDA kernel's split-context algorithm in plain PyTorch (the
+    tests use it; the main path does not). Same arguments and result as
+    :func:`decode_attention_plain`.
+
+    The T attended entries are cut into splits of ``split_rows`` rows. Each
+    split computes its partial (m, l, acc) over its own rows only, with the
+    finite -1e30 fill for masked scores; the partials merge as
+    M = max m_s, out = sum e^(m_s - M) acc_s / max(sum e^(m_s - M) l_s,
+    1e-30). Probabilities stay f32 for the PV sum. On a slot whose entries
+    are all masked every split has m = -1e30 and weight 1, so the result is
+    the mean of the T value rows, as in the unsplit version."""
+    if split_rows < 1:
+        raise ValueError(f"split_rows must be positive, got {split_rows}")
+    b, _, h, d = q.shape
+    num_kv = k_cache.shape[2]
+    t = pos_cache.shape[1]
+    qg = q[:, 0].reshape(b, num_kv, h // num_kv, d).to(k_cache.dtype).float()
+    dd = pos_q[:, None] - pos_cache
+    ok = (pos_cache >= 0) & (dd >= 0)
+    if window is not None:
+        ok = ok & (dd < window)
+    ms, ls, accs = [], [], []
+    for t0 in range(0, t, split_rows):
+        t1 = min(t0 + split_rows, t)
+        s = torch.einsum("bkgd,btkd->bkgt", qg,
+                         k_cache[:, t0:t1].float()) * d ** -0.5
+        s = torch.where(ok[:, None, None, t0:t1], s, NEG_INF)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgt,btkd->bkgd", p,
+                                 v_cache[:, t0:t1].float()))
+    m = torch.stack(ms)  # (splits, B, K, G)
+    w = torch.exp(m - m.amax(dim=0))
+    l = (w * torch.stack(ls)).sum(dim=0)
+    acc = (w[..., None] * torch.stack(accs)).sum(dim=0)
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+def split_rows_for(b: int, num_kv: int, t: int, sms: int,
+                   page: Optional[int] = None) -> int:
+    """Context rows per split for the kernel: the least power of two
+    >= MIN_SPLIT_ROWS that gives at most ceil(2 * sms / (b * num_kv))
+    splits, so the grid (splits, K, B) holds about two blocks an SM, capped
+    at MAX_SPLIT_ROWS (and, paged, at what a split's page-table stage
+    holds). A power of two is a multiple or a divisor of any power-of-two
+    page, so a split then covers whole pages or lies inside one."""
+    want = -(-2 * sms // (b * num_kv))
+    cap = MAX_SPLIT_ROWS
+    if page is not None:
+        cap = min(cap, (MAX_SPLIT_PAGES - 2) * page)
+    rows = MIN_SPLIT_ROWS
+    while rows * want < t and rows * 2 <= cap:
+        rows *= 2
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
@@ -91,10 +161,23 @@ def _lib() -> ctypes.CDLL:
     if not _argtypes_set:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.decode_attention_launch.argtypes = (
-            [i] + [p] * 7 + [i] * 7 + [i64] * 8 + [ctypes.c_float, p])
+            [i] + [p] * 8 + [i] * 9 + [i64] * 8 + [ctypes.c_float, p])
         lib.decode_attention_launch.restype = ctypes.c_int
         _argtypes_set = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _rows_aligned(x: torch.Tensor) -> bool:
+    """Every row of x (last dim contiguous) starts 16-byte aligned."""
+    esz = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(
+        st * esz % 16 == 0 for st, n in zip(x.stride()[:-1], x.shape[:-1])
+        if n > 1)
 
 
 def _check_int(name: str, x: torch.Tensor, ndim: int) -> None:
@@ -142,21 +225,36 @@ def _check_common(q, k, v, pos_q, pos_cache):
     return b, h, kh, hd
 
 
-def _launch(q, k, v, pos_q, pos_cache, pages, window, b, h, kh, hd, page):
-    out = torch.empty_like(q)
+def _launch(q, k, v, pos_q, pos_cache, pages, window, split_rows, b, h, kh,
+            hd, page):
     t = pos_cache.shape[1]
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
-    pg_ptr = pages.data_ptr() if pages is not None else None
-    pg_sb = pages.stride(0) if pages is not None else 0
+    if split_rows is None:
+        split_rows = split_rows_for(b, kh, t, _sm_count(q.device.index),
+                                    page if pages is not None else None)
+    elif split_rows < 1:
+        raise ValueError(f"split_rows must be positive, got {split_rows}")
+    if pages is not None and -(-split_rows // page) + 1 > MAX_SPLIT_PAGES:
+        raise ValueError(f"a split of {split_rows} rows spans more than "
+                         f"{MAX_SPLIT_PAGES} pages of {page}")
+    splits = -(-t // split_rows)
+    out = torch.empty_like(q)
+    ws = (torch.empty(b * h * splits * (hd + 2), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
+    vec = all(_rows_aligned(x) for x in (q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().decode_attention_launch(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        pos_q.data_ptr(), pos_cache.data_ptr(), pg_ptr, out.data_ptr(),
+        pos_q.data_ptr(), pos_cache.data_ptr(),
+        pages.data_ptr() if pages is not None else None, out.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
         b, h, kh, hd, t, page, 0 if window is None else int(window),
+        int(split_rows), int(vec),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        pos_cache.stride(0), pg_sb, float(hd ** -0.5), stream)
+        pos_cache.stride(0), pages.stride(0) if pages is not None else 0,
+        float(hd ** -0.5), stream)
     runtime.check(err, "decode_attention")
     return out
 
@@ -164,23 +262,28 @@ def _launch(q, k, v, pos_q, pos_cache, pages, window, b, h, kh, hd, page):
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, pos_q: torch.Tensor,
                           pos_cache: torch.Tensor, *,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          split_rows: Optional[int] = None) -> torch.Tensor:
     """Kernel launch for the dense cache. k/v_cache may be strided views
-    (a context-bucket slice or a layer of the stacked cache)."""
+    (a context-bucket slice or a layer of the stacked cache). ``split_rows``
+    forces the context rows per split (None: :func:`split_rows_for`; T or
+    more: one split, no combine)."""
     b, h, kh, hd = _check_common(q, k_cache, v_cache, pos_q, pos_cache)
     if k_cache.shape[0] != b or k_cache.shape[1] < pos_cache.shape[1]:
         raise ValueError(f"dense cache {tuple(k_cache.shape)} does not cover "
                          f"pos_cache {tuple(pos_cache.shape)}")
     return _launch(q, k_cache, v_cache, pos_q, pos_cache, None, window,
-                   b, h, kh, hd, 1)
+                   split_rows, b, h, kh, hd, 1)
 
 
 def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                 v_pool: torch.Tensor, pages: torch.Tensor,
                                 pos_q: torch.Tensor, pos_cache: torch.Tensor,
-                                *, window: Optional[int] = None
+                                *, window: Optional[int] = None,
+                                split_rows: Optional[int] = None
                                 ) -> torch.Tensor:
-    """Kernel launch for the paged pool; rows are found through ``pages``."""
+    """Kernel launch for the paged pool; rows are found through ``pages``.
+    ``split_rows`` as for :func:`decode_attention_cuda`."""
     b, h, kh, hd = _check_common(q, k_pool, v_pool, pos_q, pos_cache)
     if pages.device != q.device:
         raise ValueError(f"pages must lie on {q.device}, got {pages.device}")
@@ -190,4 +293,4 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"page table {tuple(pages.shape)} x page {page} does "
                          f"not cover pos_cache {tuple(pos_cache.shape)}")
     return _launch(q, k_pool, v_pool, pos_q, pos_cache, pages, window,
-                   b, h, kh, hd, page)
+                   split_rows, b, h, kh, hd, page)

@@ -6,8 +6,11 @@ runs the plain PyTorch version, a CUDA tensor launches the kernel (or the
 kernel wrapper raises on what it does not take); any other device raises.
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``<wrapper>.launches``, once the launch has returned without error, so a
-run can show that its path went through the kernel. The kernels take head dims 32/64/128 unpadded and scale scores by
-the true head dim, so the JAX package's ``_pad_head`` has no counterpart.
+run can show that its path went through the kernel. A decode call counts
+as one launch though it is two device launches (split and combine) when the
+context is split. The kernels take head dims 32/64/128 unpadded and scale
+scores by the true head dim, so the JAX package's ``_pad_head`` has no
+counterpart.
 """
 from __future__ import annotations
 

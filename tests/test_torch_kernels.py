@@ -18,7 +18,8 @@ from repro.models import attention as jattn  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_cuda, decode_attention_paged_cuda)
+    MIN_SPLIT_ROWS, decode_attention_cuda, decode_attention_paged_cuda,
+    decode_attention_split_plain, split_rows_for)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.image_complexity import image_stats_cuda  # noqa: E402
@@ -167,6 +168,68 @@ def test_decode_plain_all_masked_slot_returns_mean_v():
     np.testing.assert_allclose(got[1, 0].reshape(2, 2, 32),
                                np.repeat(mean_v[:, None], 2, axis=1),
                                rtol=1e-5, atol=1e-6)
+
+
+def _live_only(pos, pq, lo, hi):
+    """Only rows lo..hi-1 hold positions (0..); every other entry empty."""
+    pos[:] = -1
+    pos[:, lo:hi] = np.arange(hi - lo)
+    pq[:] = hi - lo - 1
+
+
+# scenario: (fill, window, all-masked last slot, live rows); T = 100 is no
+# multiple of 16 or 32, so the last split is ragged
+SPLIT_SCENARIOS = {
+    "filled": (90, None, False, None),
+    "all-masked slot": (90, None, True, None),
+    "window": (90, 16, False, None),
+    # rows 40-47 live: every split that misses them is wholly masked
+    "masked splits": (None, None, True, (40, 48)),
+}
+
+
+@pytest.mark.parametrize("scenario", list(SPLIT_SCENARIOS))
+@pytest.mark.parametrize("split_rows", [1, 16, 32, 200])
+def test_decode_split_plain_matches_plain_and_xla(scenario, split_rows):
+    """The kernel's split-and-merge arithmetic (partial m, l, acc per split
+    with the -1e30 fill, merged by the max) against the unsplit plain
+    version and JAX's XLA path."""
+    fill, window, dead, live = SPLIT_SCENARIOS[scenario]
+    rng = np.random.default_rng(split_rows + len(scenario))
+    q, kc, vc, pq, pos = _dense_inputs(rng, 3, 100, 8, 2, 32, fill or 100)
+    if live is not None:
+        _live_only(pos, pq, *live)
+    if dead:
+        pos[2] = -1
+    want = _check_dense(q, kc, vc, pq, pos, window=window)  # plain vs XLA
+    got = decode_attention_split_plain(
+        *map(torch.as_tensor, (q, kc, vc, pq, pos)), window=window,
+        split_rows=split_rows).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    xla = jattn.decode_attention_xla(*map(jnp.asarray, (q, kc, vc, pq, pos)),
+                                     window=window)
+    np.testing.assert_allclose(got, _np(xla), rtol=RTOL, atol=ATOL)
+    if dead:
+        mean_v = vc[2].mean(axis=0)  # (K, hd)
+        np.testing.assert_allclose(got[2, 0].reshape(2, 4, 32),
+                                   np.repeat(mean_v[:, None], 4, axis=1),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,kh,t,sms,page", [
+    (4, 4, 384, 132, None), (4, 2, 384, 132, 64), (4, 4, 4096, 132, 64),
+    (4, 2, 4096, 132, 16), (1, 1, 1, 132, None), (1, 1, 10 ** 6, 132, 8),
+])
+def test_split_rows_for_fills_the_grid(b, kh, t, sms, page):
+    rows = split_rows_for(b, kh, t, sms, page)
+    assert rows >= MIN_SPLIT_ROWS and rows & (rows - 1) == 0
+    splits = -(-t // rows)
+    # as many splits as ~2 blocks an SM want, unless a split is already
+    # the least (32 rows) or the largest it may be
+    assert splits <= -(-2 * sms // (b * kh)) or rows == 1024
+    assert rows == MIN_SPLIT_ROWS or (rows // 2) * -(-2 * sms // (b * kh)) < t
+    if page is not None:
+        assert rows % page == 0 or page % rows == 0
 
 
 # ---------------------------------------------------------------------------
@@ -400,3 +463,103 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, causal,
     assert tops.flash_attention.launches == before + 1
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# (b, h, kh, hd, t, fill, window, all-masked last slot, live rows, page,
+#  forced split rows): the places where splitting the context can go wrong
+DECODE_SPLIT_CASES = {
+    "T=1": (2, 8, 2, 128, 1, 1, None, False, None, 16, None),
+    "T=33": (2, 12, 2, 128, 33, 33, None, False, None, 16, None),
+    "T=97": (2, 4, 1, 128, 97, 94, None, False, None, 16, None),
+    "T=300 not a multiple of the split": (4, 28, 4, 128, 300, 295, None,
+                                          False, None, 64, None),
+    "T=4096": (4, 28, 4, 128, 4096, 4000, None, False, None, 64, None),
+    "T=4096 all-masked slot": (4, 28, 4, 128, 4096, 4000, None, True, None,
+                               64, None),
+    "window 64 edge inside a split": (2, 8, 2, 64, 256, 200, 64, False, None,
+                                      64, None),
+    "one live split": (4, 28, 4, 128, 512, 224, None, False, (208, 224), 64,
+                       None),
+    "page 16 ends mid-page": (4, 28, 4, 128, 390, 385, None, False, None, 16,
+                              None),
+    "page 64 ends mid-page": (4, 12, 2, 128, 390, 385, None, True, None, 64,
+                              None),
+    "forced single split": (4, 28, 4, 128, 384, 380, None, False, None, 64,
+                            512),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(DECODE_SPLIT_CASES))
+def test_decode_kernel_split_cases(cuda, case, dtype, layout):
+    b, h, kh, hd, t, fill, window, dead, live, page, rows = (
+        DECODE_SPLIT_CASES[case])
+    dt = getattr(torch, dtype)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    rng = np.random.default_rng(t + h)
+    dev = lambda x: torch.as_tensor(x, device=cuda)
+    if layout == "dense":
+        q, kc, vc, pq, pos = _dense_inputs(rng, b, t + 8, h, kh, hd, fill)
+        pos = pos[:, :t]
+        args = (q, kc[:, :t], vc[:, :t])  # a bucket view of a longer cache
+    else:
+        q, kp, vp, pages, pq, pos = _paged_inputs(
+            rng, b, h, kh, hd, page, -(-t // page) + 1, t, fill)
+        if dead:
+            pages[b - 1] = 0  # a dead slot's table is all null page
+        args = (q, kp, vp, pages)
+    if live is not None:
+        _live_only(pos, pq, *live)
+    if dead:
+        pos[b - 1] = -1
+    args = [dev(x) for x in (*args, pq, pos)]
+    for i in range(3):
+        args[i] = args[i].to(dt)
+    if layout == "dense":
+        got = decode_attention_cuda(*args, window=window, split_rows=rows)
+        want = tref.decode_attention_ref(*args, window=window)
+        v_rows = args[2][b - 1]
+    else:
+        got = decode_attention_paged_cuda(*args, window=window,
+                                          split_rows=rows)
+        want = tref.decode_attention_paged_ref(*args, window=window)
+        v_rows = args[2][0].repeat(-(-t // page), 1, 1)[:t]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dead:  # the all-masked slot returns the mean of its T value rows
+        row = got[b - 1, 0].float().reshape(kh, h // kh, hd)
+        mean_v = v_rows.float().mean(dim=0)[:, None].expand_as(row)
+        torch.testing.assert_close(row, mean_v, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_decode_kernels_capture_in_cuda_graph(cuda, layout):
+    """Split and combine launches record into a CUDA graph (no host sync,
+    no allocation in the C code); a replay equals an eager call."""
+    rng = np.random.default_rng(9)
+    dt = torch.bfloat16
+    if layout == "dense":
+        q, kc, vc, pq, pos = _dense_inputs(rng, 4, 512, 28, 4, 128, 380)
+        args = [torch.as_tensor(x, device=cuda)
+                for x in (q, kc[:, :384], vc[:, :384], pq, pos[:, :384])]
+        fn = decode_attention_cuda
+    else:
+        args = [torch.as_tensor(x, device=cuda) for x in _paged_inputs(
+            rng, 4, 28, 4, 128, 64, 8, 384, 380)]
+        fn = decode_attention_paged_cuda
+    for i in range(3):
+        args[i] = args[i].to(dt)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)  # warm: build, load, first allocations
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    args[0].copy_(args[0] * -1)  # new query, same buffers
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fn(*args))

@@ -20,21 +20,62 @@
 //
 // Bound on the card: at the serving shapes (R = 4 rows, S = 272-512,
 // hd = 128, bf16) a launch moves 9-21 MB of q, k, v and o and does ~1-3
-// GFLOP of causal products: ~3-6 us of bytes against ~1-3 us of bf16
-// tensor-core operations, so the bytes bound it, and the tiles sit close
-// to the ridge. Design: one block of 4 warps per (64-row query tile, query
-// head, batch row); K/V tiles of 64 rows of KV head h / G stream through
-// shared memory (the G query heads of a group read the same tiles, which
-// L2 serves after the first), tiles wholly above the diagonal or wholly
-// outside the window are skipped, and each query tile is read once and
-// written once. The bf16 path multiplies with mma.sync m16n8k16 (bf16 in,
-// f32 accumulate): each warp holds 16 query rows, its scores stay in
-// registers, and the probabilities, rounded to bf16, feed the PV product
-// straight from the score fragments. The f32 path must not use TF32, so it
-// multiplies with plain f32 FMAs over shared-memory tiles (each thread 4
-// rows x 8 keys of scores, 4 rows x hd/8 columns of output). Rows are
-// addressed by strides, so a q view from rope goes in without a copy;
-// 16-byte vector loads are used when every row start is 16-byte aligned.
+// GFLOP of causal products: ~3-10 us of bytes against ~1-4 us of bf16
+// tensor-core operations, so the bytes bound it and the tiles sit close to
+// the ridge; a long prompt (S = 4096) is bound by the operations.
+//
+// Grid: one block of 4 warps per (query head, batch row, 64-row query
+// tile), each warp 16 query rows. The query tile is the slowest grid
+// dimension and counts from the last tile, so the blocks of the heaviest
+// tiles (those that walk the most key tiles under a causal mask) start
+// first and the light ones fill the tail (longest job first); neighbouring
+// blocks are the heads of one KV group, so a K/V tile that one of them
+// brings into L2 serves the next. Key tiles wholly above the diagonal or
+// wholly before the window are skipped.
+//
+// bf16, both kernels:
+// * Loads. q and the K/V tiles reach shared memory by 16-byte cp.async.cg
+//   (no registers, no waiting at the issue); rows past S are zero-filled by
+//   a source size of 0, so 0 x garbage never reaches the PV sum. K and V
+//   tiles share a ring of three tile slots, in the order K0 V0 K1 V1 ...:
+//   K_{j+1} is issued with tile j's q.K^T, V_{j+1} with its PV product, and
+//   K_j is waited for apart from V_j, so q.K^T overlaps V_j's arrival. Two
+//   block barriers a tile. Without 16-byte aligned rows (the wrapper's
+//   `vec`) the same slots are filled element by element.
+// * The scores stay in registers; the probabilities, rounded to bf16, are
+//   the A fragments of the PV product straight from the score fragments
+//   (f32 accumulation). l sums the unrounded f32 probabilities per lane and
+//   reduces once at the end.
+// * The softmax runs in base 2: scores are scaled by hd^-0.5 * log2(e), and
+//   the masked value and the running max's start are -1e30 * log2(e), the
+//   same -1e30 in that domain, so the rescale of a wholly masked leading
+//   tile is unchanged. Only the tiles that need a mask compute one (per
+//   warp: the diagonal tile, a window edge, the ragged last tile).
+// * The output is staged through the warp's own rows of the q buffer and
+//   written with 16-byte coalesced stores.
+// * hd 128 (the serving models), flash_bf16_wgmma_kernel: one warpgroup
+//   runs q.K^T as wgmma with q and K in shared memory, and PV as wgmma
+//   with P in registers and V read transposed from shared memory; tiles
+//   are kept in wgmma's 128-byte-swizzle layout (conflict-free for the
+//   copies and the output staging). 168 registers, 66,560 bytes of shared
+//   memory: 3 blocks an SM. The same design on mma.sync with ldmatrix
+//   fragments (below) was ~1.4x slower at hd 128 on an H100: every warp
+//   read the whole K and V tile from shared memory for its 16 rows, and
+//   those reads, not the products or the exponentials, set its pace.
+// * hd 32 and 64 (reduced configs), flash_bf16_kernel: mma.sync m16n8k16,
+//   fragments by ldmatrix.x4 (.trans for V) from rows padded to hd + 8
+//   elements (the 8 row addresses of each 8x8 matrix fall on 8 disjoint
+//   groups of 4 banks). __launch_bounds__(128, 3).
+// flash_attention_tiled_plain (same Python module) is this tile loop in
+// PyTorch, and the tests hold both kernels to it.
+//
+// f32 (tests and reduced f32 engines) must not use TF32, so it multiplies
+// with plain FMAs over shared-memory tiles (each thread 4 rows x 8 keys of
+// scores, 4 rows x hd/8 columns of output), in the natural exp domain.
+//
+// Rows are addressed by strides, so a q view from rope goes in without a
+// copy. The shared-memory opt-in is made once per kernel and device, so a
+// launch can be captured in a CUDA graph.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,7 +86,10 @@ namespace {
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kBlockQ = 64;    // query rows per block
 constexpr int kBlockK = 64;    // key rows per tile
+constexpr int kSlots = 3;      // K/V tile slots of the bf16 ring
 constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMasked2 = kMasked * kLog2e;  // kMasked in the base-2 domain
 
 struct Args {
   const void* q;  // (B, S, H, hd), strided, unit stride on hd
@@ -56,6 +100,14 @@ struct Args {
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;  // elements
   float scale;
 };
+
+// Grid (H, B, n_q): the query tile counts from the last, so the heaviest
+// blocks start first.
+__device__ __forceinline__ void block_coords(int& q0, int& h, int& b) {
+  h = blockIdx.x;
+  b = blockIdx.y;
+  q0 = (gridDim.z - 1 - blockIdx.z) * kBlockQ;
+}
 
 // The key tiles [lo, hi] that query tile q0 reads: tiles wholly above the
 // diagonal (causal) or wholly before the window are skipped.
@@ -81,22 +133,47 @@ __device__ __forceinline__ float mask_score(const Args& a, float x, int row,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16, f32 accumulation
+// bf16: cp.async ring, ldmatrix, mma.sync m16n8k16 with f32 accumulation
 // ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; bytes = 0 writes 16 zero bytes and reads none
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group of this thread but the newest N has landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
@@ -109,22 +186,24 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 64 rows of hd bf16 into shared memory (row stride HD + 8); rows at and
-// past `rows` are zero (a zero V row keeps 0 * garbage out of the PV sum).
+// Stage 64 rows of hd bf16 into shared memory (row stride HD + 8); rows at
+// and past `rows` are zero. vec: asynchronous 16-byte copies (the caller
+// commits and waits); otherwise element copies, done on return.
 template <int HD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int64_t row_stride, int rows,
-                                               int vec) {
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           int64_t row_stride, int rows,
+                                           int vec) {
   constexpr int LD = HD + 8;
   if (vec) {
     constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-    for (int i = threadIdx.x; i < kBlockK * kChunks; i += kThreads) {
+#pragma unroll
+    for (int it = 0; it < kBlockK * kChunks / kThreads; ++it) {
+      const int i = it * kThreads + threadIdx.x;
       const int r = i / kChunks, c = (i % kChunks) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows)
-        val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+      const bool in = r < rows;
+      cp_async16(smem_addr(dst + r * LD + c),
+                 src + (in ? r * row_stride + c : 0), in ? 16 : 0);
     }
   } else {
     for (int i = threadIdx.x; i < kBlockK * HD; i += kThreads) {
@@ -135,16 +214,93 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
   }
 }
 
+// One tile's online softmax in base 2 for a warp's 16 rows: rows row0 (c0,
+// c1) and row0 + 8 (c2, c3) of the score fragments, each shared by the 4
+// lanes of a quad. Masks only when the tile needs it (diagonal, window
+// edge, ragged last tile), updates the running max m and the lane's partial
+// sum l, turns s into probabilities and rescales o.
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_bf16_kernel(Args a) {
-  constexpr int LD = HD + 8;  // +16 bytes: conflict-free fragment loads
+__device__ __forceinline__ void softmax_tile(const Args& a, float (&s)[8][4],
+                                             float (&o)[HD / 8][4], int k0,
+                                             int w_lo, int row0, int t4,
+                                             float scale2, float& m0,
+                                             float& m1, float& l0,
+                                             float& l1) {
+  const int w_hi = w_lo + 15, row1 = row0 + 8;
+  float mx0 = m0, mx1 = m1;
+  const bool need_mask = (a.causal && k0 + kBlockK - 1 > w_lo) ||
+                         (a.window > 0 && w_hi - k0 >= a.window) ||
+                         k0 + kBlockK > a.S;
+  if (need_mask) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? row0 : row1;
+        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
+        float x = s[nt][e] * scale2;
+        if (col >= a.S)
+          x = -INFINITY;  // past S: excluded outright
+        else if ((a.causal && col > row) ||
+                 (a.window > 0 && row - col >= a.window))
+          x = kMasked2;
+        s[nt][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[nt][e] * scale2;
+        s[nt][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s[nt][e] - (e < 2 ? m0 : m1));
+      s[nt][e] = p;
+      if (e < 2) sum0 += p; else sum1 += p;
+    }
+  }
+  l0 = l0 * c0 + sum0;
+  l1 = l1 * c1 + sum1;
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt) {
+    o[nt][0] *= c0; o[nt][1] *= c0;
+    o[nt][2] *= c1; o[nt][3] *= c1;
+  }
+}
+
+template <int HD>
+constexpr size_t smem_bf16() {
+  return sizeof(__nv_bfloat16) * (kBlockQ + kSlots * kBlockK) * (HD + 8);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 3) flash_bf16_kernel(Args a) {
+  constexpr int LD = HD + 8;          // +16 bytes: conflict-free ldmatrix
+  constexpr int kTile = kBlockK * LD;  // elements of one staged tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + kBlockQ * LD;
-  __nv_bfloat16* v_s = k_s + kBlockK * LD;
+  __nv_bfloat16* ring = q_s + kBlockQ * LD;  // kSlots tiles
 
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  int q0, h, b;
+  block_coords(q0, h, b);
   const int kh = h / (a.H / a.K);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -156,126 +312,404 @@ __global__ void __launch_bounds__(kThreads) flash_bf16_kernel(Args a) {
   const __nv_bfloat16* vp =
       static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + kh * a.v_sh;
 
-  load_tile_bf16<HD>(q_s, qp + q0 * a.q_ss, a.q_ss, a.S - q0, a.vec);
-  __syncthreads();
+  int lo, hi;
+  tile_range(a, q0, lo, hi);
 
-  // this warp's 16 query rows as A fragments, for the whole kernel
-  const int r0 = warp * 16 + g;
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < HD / 16; ++kc) {
-    const __nv_bfloat16* p0 = q_s + r0 * LD + kc * 16 + t4 * 2;
-    const __nv_bfloat16* p1 = p0 + 8 * LD;
-    qf[kc][0] = ld32(p0);
-    qf[kc][1] = ld32(p1);
-    qf[kc][2] = ld32(p0 + 8);
-    qf[kc][3] = ld32(p1 + 8);
-  }
+  // prologue: q with the first K tile (one group), the first V tile (the
+  // next); slots: K_j in ks, V_j in vs, the third is free
+  int ks = 0, vs = 1, fs = 2;
+  stage_tile<HD>(q_s, qp + q0 * a.q_ss, a.q_ss, a.S - q0, a.vec);
+  stage_tile<HD>(ring, kp + lo * kBlockK * a.k_ss, a.k_ss,
+                 a.S - lo * kBlockK, a.vec);
+  cp_async_commit();
+  stage_tile<HD>(ring + kTile, vp + lo * kBlockK * a.v_ss, a.v_ss,
+                 a.S - lo * kBlockK, a.vec);
+  cp_async_commit();
+
+  // ldmatrix row addresses of this lane (bytes): q rows of the warp (A,
+  // 16x16 per x4), K rows as n (B of q.K^T, two n-tiles x 16 of depth), V
+  // rows as depth (B of PV by .trans, 16 keys x two n-tiles of 8 dims)
+  const uint32_t q_lane =
+      smem_addr(q_s + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
+  const uint32_t k_lane = 2 * (((lane & 7) + (lane >> 4) * 8) * LD +
+                               ((lane >> 3) & 1) * 8);
+  const uint32_t v_lane = 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                               (lane >> 4) * 8);
+  const uint32_t ring_addr = smem_addr(ring);
 
   float o[HD / 8][4];
 #pragma unroll
   for (int nt = 0; nt < HD / 8; ++nt)
     o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  float m0 = kMasked, m1 = kMasked, l0 = 0.f, l1 = 0.f;
-  const int row0 = q0 + r0, row1 = row0 + 8;
+  float m0 = kMasked2, m1 = kMasked2, l0 = 0.f, l1 = 0.f;  // l: lane partial
+  const float scale2 = a.scale * kLog2e;
+  const int w_lo = q0 + warp * 16, row0 = w_lo + g;  // the warp's rows
 
-  int lo, hi;
-  tile_range(a, q0, lo, hi);
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * kBlockK;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile_bf16<HD>(k_s, kp + k0 * a.k_ss, a.k_ss, a.S - k0, a.vec);
-    load_tile_bf16<HD>(v_s, vp + k0 * a.v_ss, a.v_ss, a.S - k0, a.vec);
-    __syncthreads();
+    cp_async_wait<1>();  // K_j (and q) landed for this thread; V_j may not
+    __syncthreads();     // ... for every thread; every warp is done with V_{j-1}
+    if (kt < hi)
+      stage_tile<HD>(ring + fs * kTile, kp + (k0 + kBlockK) * a.k_ss, a.k_ss,
+                     a.S - k0 - kBlockK, a.vec);
+    cp_async_commit();
 
-    // scores: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
+    // scores: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys; q's
+    // fragments are re-read per tile
     float s[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    const uint32_t k_addr = ring_addr + ks * kTile * 2 + k_lane;
 #pragma unroll
     for (int kc = 0; kc < HD / 16; ++kc) {
+      uint32_t qa[4];
+      ldmatrix_x4(qa, q_lane + kc * 32);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* kr = k_s + (nt * 8 + g) * LD + kc * 16 + t4 * 2;
-        mma_bf16(s[nt], qf[kc], ld32(kr), ld32(kr + 8));
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, k_addr + (np * 16 * LD + kc * 16) * 2);
+        mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
       }
     }
 
-    // online softmax; rows row0 (c0, c1) and row1 (c2, c3), each shared by
-    // the 4 lanes of a quad
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const float x = mask_score(a, s[nt][e] * a.scale, e < 2 ? row0 : row1, col);
-        s[nt][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float c0 = expf(m0 - mx0), c1 = expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - (e < 2 ? m0 : m1));
-        s[nt][e] = p;
-        if (e < 2) sum0 += p; else sum1 += p;
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    l0 = l0 * c0 + sum0;
-    l1 = l1 * c1 + sum1;
-#pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt) {
-      o[nt][0] *= c0; o[nt][1] *= c0;
-      o[nt][2] *= c1; o[nt][3] *= c1;
-    }
+    softmax_tile<HD>(a, s, o, k0, w_lo, row0, t4, scale2, m0, m1, l0, l1);
 
-    // o += P V: the score fragments of n-tiles 2kc, 2kc+1 are the A
-    // fragment of key chunk kc; V's B fragments pair rows 2*t4, 2*t4+1
+    cp_async_wait<1>();  // V_j landed for this thread; K_{j+1} may not
+    __syncthreads();     // ... for every thread; every warp is done with K_j
+    if (kt < hi)
+      stage_tile<HD>(ring + ks * kTile, vp + (k0 + kBlockK) * a.v_ss, a.v_ss,
+                     a.S - k0 - kBlockK, a.vec);
+    cp_async_commit();
+
+    // o += P V: the probabilities of n-tiles 2kc, 2kc+1, rounded to bf16,
+    // are the A fragment of key chunk kc
+    const uint32_t v_addr = ring_addr + vs * kTile * 2 + v_lane;
 #pragma unroll
     for (int kc = 0; kc < kBlockK / 16; ++kc) {
       const uint32_t pa[4] = {pack_f32(s[2 * kc][0], s[2 * kc][1]),
                               pack_f32(s[2 * kc][2], s[2 * kc][3]),
                               pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]),
                               pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-      const __nv_bfloat16* v0 = v_s + (kc * 16 + t4 * 2) * LD + g;
 #pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt) {
-        const __nv_bfloat16* vr = v0 + nt * 8;
-        mma_bf16(o[nt], pa, pack_raw(vr[0], vr[LD]),
-                 pack_raw(vr[8 * LD], vr[9 * LD]));
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, v_addr + (kc * 16 * LD + dp * 16) * 2);
+        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
       }
     }
+    // K_{j+1} is in fs, V_{j+1} in ks; V_j's slot is free after the barrier
+    const int f = fs;
+    fs = vs;
+    vs = ks;
+    ks = f;
   }
+  cp_async_wait<0>();  // only empty groups remain
 
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+
+  // stage the warp's 16 output rows in its own rows of q_s (no other warp
+  // reads them), then write them with 16-byte stores
+  __nv_bfloat16* os = q_s + warp * 16 * LD;
 #pragma unroll
   for (int nt = 0; nt < HD / 8; ++nt) {
     const int col = nt * 8 + t4 * 2;
-    if (row0 < a.S)
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + (((int64_t)b * a.S + row0) * a.H + h) * HD + col) =
-          __floats2bfloat162_rn(o[nt][0] / d0, o[nt][1] / d0);
-    if (row1 < a.S)
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + (((int64_t)b * a.S + row1) * a.H + h) * HD + col) =
-          __floats2bfloat162_rn(o[nt][2] / d1, o[nt][3] / d1);
+    *reinterpret_cast<__nv_bfloat162*>(os + g * LD + col) =
+        __floats2bfloat162_rn(o[nt][0] / d0, o[nt][1] / d0);
+    *reinterpret_cast<__nv_bfloat162*>(os + (g + 8) * LD + col) =
+        __floats2bfloat162_rn(o[nt][2] / d1, o[nt][3] / d1);
+  }
+  __syncwarp();
+  constexpr int kChunks = HD / 8;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
+                       ((int64_t)b * a.S * a.H + h) * HD;
+#pragma unroll
+  for (int it = 0; it < 16 * kChunks / 32; ++it) {
+    const int i = it * 32 + lane, r = i / kChunks, c = (i % kChunks) * 8;
+    if (w_lo + r < a.S)
+      *reinterpret_cast<uint4*>(out + (int64_t)(w_lo + r) * a.H * HD + c) =
+          *reinterpret_cast<const uint4*>(os + r * LD + c);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16, hd 128 (the serving head dim): wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kAtom = 64 * 128;     // bytes of a swizzle atom: 64 rows x 128 B
+constexpr int kTileW = 2 * kAtom;   // bytes of a 64 x 128 bf16 tile
+
+// Byte offset of 16-byte chunk c (0..15) of row r (0..63) of a 64 x 128
+// bf16 tile kept as wgmma's canonical 128-byte-swizzle layout: columns
+// 0-63 in atom 0, 64-127 in atom 1, each row 128 B, chunk c of an atom at
+// chunk c ^ (r % 8). The 8 rows of a 1024-byte group cover all 32 banks for
+// any chunk, so a quarter-warp's 16-byte accesses never conflict.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return (c >> 3) * kAtom + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// 64 rows of 128 bf16 into the swizzled layout; rows at and past `rows`
+// are zero. vec: 16-byte cp.async (the caller commits and waits).
+__device__ __forceinline__ void stage_sw128(unsigned char* dst,
+                                            const __nv_bfloat16* src,
+                                            int64_t row_stride, int rows,
+                                            int vec) {
+  if (vec) {
+#pragma unroll
+    for (int it = 0; it < 64 * 16 / kThreads; ++it) {
+      const int i = it * kThreads + threadIdx.x, r = i >> 4, c = i & 15;
+      const bool in = r < rows;
+      cp_async16(smem_addr(dst + sw128(r, c)),
+                 src + (in ? r * row_stride + c * 8 : 0), in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < 64 * 128; i += kThreads) {
+      const int r = i >> 7, col = i & 127;
+      reinterpret_cast<__nv_bfloat16*>(dst + sw128(r, col >> 3))[col & 7] =
+          r < rows ? src[r * row_stride + col] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// wgmma shared-memory matrix descriptor with 128-byte swizzle. K-major
+// operands (q, K): sbo = 1024 (8-row groups), lbo unused. MN-major (V, read
+// transposed): lbo = the stride between 64-column atoms, sbo = 1024.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// cp.async writes are generic-proxy writes; wgmma reads through the async
+// proxy, which sees them only after this fence
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keep the compiler from touching accumulators while a wgmma owns them
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// d (64 x 64 f32, warp w rows 16w.., mma.sync's C layout per warp) {=, +=}
+// A (smem) x B (smem)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 128 f32) += A (registers, mma.sync's A layout per warp) x B (smem,
+// MN-major)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[16][4], uint32_t const (&a)[4], uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// One warpgroup per (query head, batch row, 64-row query tile). q and the
+// K/V ring live in the swizzled layout; q.K^T is 8 wgmma m64n64k16 with both
+// operands in shared memory, PV 4 wgmma m64n128k16 with P from registers
+// and V read transposed from shared memory. The tensor cores read each K/V
+// fragment once for the 64 rows, where ldmatrix has every warp read the
+// whole tile. The softmax, masks and output staging are those of the
+// mma.sync kernel (same accumulator layout per warp).
+constexpr size_t kSmemWgmma = 1024 + (1 + kSlots) * kTileW;  // + alignment
+
+__global__ void __launch_bounds__(kThreads, 3) flash_bf16_wgmma_kernel(Args a) {
+  constexpr int HD = 128;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = q_s + kTileW;  // kSlots tiles
+
+  int q0, h, b;
+  block_coords(q0, h, b);
+  const int kh = h / (a.H / a.K);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  const __nv_bfloat16* qp =
+      static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const __nv_bfloat16* kp =
+      static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + kh * a.k_sh;
+  const __nv_bfloat16* vp =
+      static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + kh * a.v_sh;
+
+  int lo, hi;
+  tile_range(a, q0, lo, hi);
+
+  // prologue: q with the first K tile (one group), the first V tile (the
+  // next); slots: K_j in ks, V_j in vs, the third is free
+  int ks = 0, vs = 1, fs = 2;
+  stage_sw128(q_s, qp + q0 * a.q_ss, a.q_ss, a.S - q0, a.vec);
+  stage_sw128(ring, kp + lo * kBlockK * a.k_ss, a.k_ss, a.S - lo * kBlockK,
+              a.vec);
+  cp_async_commit();
+  stage_sw128(ring + kTileW, vp + lo * kBlockK * a.v_ss, a.v_ss,
+              a.S - lo * kBlockK, a.vec);
+  cp_async_commit();
+  const uint32_t q_addr = smem_addr(q_s), ring_addr = smem_addr(ring);
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt)
+    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  float m0 = kMasked2, m1 = kMasked2, l0 = 0.f, l1 = 0.f;  // l: lane partial
+  const float scale2 = a.scale * kLog2e;
+  const int w_lo = q0 + warp * 16, row0 = w_lo + g;  // the warp's rows
+
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int k0 = kt * kBlockK;
+    cp_async_wait<1>();  // K_j (and q) landed for this thread; V_j may not
+    fence_proxy_async();
+    __syncthreads();     // ... for every thread; every warp is done with V_{j-1}
+
+    // scores: the warpgroup's 64 rows x 64 keys, 8 depth steps of 16; the
+    // next K tile's copies are issued while the tensor cores run
+    float s[8][4];
+    const uint32_t k_addr = ring_addr + ks * kTileW;
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < HD / 16; ++kc) {
+      const uint32_t off = (kc >> 2) * kAtom + (kc & 3) * 32;
+      wgmma_m64n64k16_ss(s, sw128_desc(q_addr + off, 16, 1024),
+                         sw128_desc(k_addr + off, 16, 1024), kc);
+    }
+    wgmma_commit();
+    if (kt < hi)
+      stage_sw128(ring + fs * kTileW, kp + (k0 + kBlockK) * a.k_ss, a.k_ss,
+                  a.S - k0 - kBlockK, a.vec);
+    cp_async_commit();
+    wgmma_wait_all();
+    pin(s);
+
+    softmax_tile<HD>(a, s, o, k0, w_lo, row0, t4, scale2, m0, m1, l0, l1);
+
+    cp_async_wait<1>();  // V_j landed for this thread; K_{j+1} may not
+    fence_proxy_async();
+    __syncthreads();     // ... for every thread; every warp is done with K_j
+
+    // o += P V: the probabilities of n-tiles 2kc, 2kc+1, rounded to bf16,
+    // are the A fragment of key chunk kc (registers a wgmma reads stay
+    // untouched until it completes); the next V tile's copies are issued
+    // while the tensor cores run
+    const uint32_t v_addr = ring_addr + vs * kTileW;
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kc = 0; kc < kBlockK / 16; ++kc) {
+      pa[kc][0] = pack_f32(s[2 * kc][0], s[2 * kc][1]);
+      pa[kc][1] = pack_f32(s[2 * kc][2], s[2 * kc][3]);
+      pa[kc][2] = pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      pa[kc][3] = pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+    }
+    pin(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kBlockK / 16; ++kc)
+      wgmma_m64n128k16_rs(o, pa[kc],
+                          sw128_desc(v_addr + kc * 16 * 128, kAtom, 1024), 1);
+    wgmma_commit();
+    if (kt < hi)
+      stage_sw128(ring + ks * kTileW, vp + (k0 + kBlockK) * a.v_ss, a.v_ss,
+                  a.S - k0 - kBlockK, a.vec);
+    cp_async_commit();
+    wgmma_wait_all();
+    pin(o);
+    // K_{j+1} is in fs, V_{j+1} in ks; V_j's slot is free after the barrier
+    const int f = fs;
+    fs = vs;
+    vs = ks;
+    ks = f;
+  }
+  cp_async_wait<0>();  // only empty groups remain
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+
+  // stage the warp's 16 output rows in its own rows of q_s (swizzled as q),
+  // then write them with 16-byte stores
+  __syncthreads();  // every warp's products are done with q_s
+  const int r0 = warp * 16 + g;
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt) {
+    *reinterpret_cast<__nv_bfloat162*>(q_s + sw128(r0, nt) + t4 * 4) =
+        __floats2bfloat162_rn(o[nt][0] / d0, o[nt][1] / d0);
+    *reinterpret_cast<__nv_bfloat162*>(q_s + sw128(r0 + 8, nt) + t4 * 4) =
+        __floats2bfloat162_rn(o[nt][2] / d1, o[nt][3] / d1);
+  }
+  __syncwarp();
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
+                       ((int64_t)b * a.S * a.H + h) * HD;
+#pragma unroll
+  for (int it = 0; it < 16 * 16 / 32; ++it) {
+    const int i = it * 32 + lane, r = i >> 4, c = i & 15;
+    if (w_lo + r < a.S)
+      *reinterpret_cast<uint4*>(out + (int64_t)(w_lo + r) * a.H * HD + c * 8) =
+          *reinterpret_cast<const uint4*>(q_s + sw128(warp * 16 + r, c));
   }
 }
 
@@ -308,6 +742,12 @@ __device__ __forceinline__ void load_tile_f32(float* dst, int ld,
 }
 
 template <int HD>
+constexpr size_t smem_f32() {
+  return sizeof(float) * ((kBlockQ + kBlockK) * (HD + 1) + kBlockK * HD +
+                          kBlockQ * (kBlockK + 1));
+}
+
+template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Args a) {
   constexpr int LQ = HD + 1;   // padded: conflict-free row-wise reads
   constexpr int LP = kBlockK + 1;
@@ -318,8 +758,8 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Args a) {
   float* v_s = k_s + kBlockK * LQ;  // 64 x HD
   float* p_s = v_s + kBlockK * HD;  // 64 x LP
 
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  int q0, h, b;
+  block_coords(q0, h, b);
   const int kh = h / (a.H / a.K);
   const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;  // 8 x 16
 
@@ -421,32 +861,58 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Args a) {
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream,
-           const Args& a) {
-  // above 48 KB a block gets its shared memory only after this opt-in
-  // (a per-device attribute, so it is set on every launch)
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Above 48 KB of shared memory a kernel must opt in: once per kernel and
+// device (no stream work, so a capture is not disturbed). Returns the
+// attribute call's error; a later launch fails on its own if it failed.
+template <void (*Kernel)(Args)>
+cudaError_t opt_in(size_t smem) {
+  static unsigned done = 0;  // a bit per device and kernel
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 32 && (done >> dev & 1u)) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && dev < 32) done |= 1u << dev;
+  return e;
+}
+
+template <void (*Kernel)(Args)>
+int launch(size_t smem, dim3 grid, cudaStream_t stream, const Args& a) {
+  const cudaError_t e = opt_in<Kernel>(smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  Kernel<<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_hd(int dtype, dim3 grid, cudaStream_t stream, const Args& a) {
-  if (dtype == 0) {
-    const size_t smem =
-        sizeof(float) * ((kBlockQ + kBlockK) * (HD + 1) + kBlockK * HD +
-                         kBlockQ * (kBlockK + 1));
-    return launch(flash_f32_kernel<HD>, smem, grid, stream, a);
-  }
-  if (dtype == 1) {
-    const size_t smem =
-        sizeof(__nv_bfloat16) * (kBlockQ + 2 * kBlockK) * (HD + 8);
-    return launch(flash_bf16_kernel<HD>, smem, grid, stream, a);
-  }
-  return (int)cudaErrorInvalidValue;
+int launch_hd(int dtype, int B, cudaStream_t stream, const Args& a) {
+  const dim3 grid(a.H, B, (a.S + kBlockQ - 1) / kBlockQ);  // heaviest first
+  if (dtype == 0)
+    return launch<flash_f32_kernel<HD>>(smem_f32<HD>(), grid, stream, a);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if constexpr (HD == 128)
+    return launch<flash_bf16_wgmma_kernel>(kSmemWgmma, grid, stream, a);
+  else
+    return launch<flash_bf16_kernel<HD>>(smem_bf16<HD>(), grid, stream, a);
+}
+
+template <void (*Kernel)(Args)>
+int blocks_per_sm(size_t smem) {
+  int n = 0;
+  if (opt_in<Kernel>(smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, Kernel, kThreads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <int HD>
+int blocks_per_sm_hd(int dtype) {
+  if (dtype == 0) return blocks_per_sm<flash_f32_kernel<HD>>(smem_f32<HD>());
+  if constexpr (HD == 128)
+    return blocks_per_sm<flash_bf16_wgmma_kernel>(kSmemWgmma);
+  else
+    return blocks_per_sm<flash_bf16_kernel<HD>>(smem_bf16<HD>());
 }
 
 }  // namespace
@@ -468,12 +934,23 @@ extern "C" int flash_attention_launch(
   a.k_sb = k_sb; a.k_ss = k_ss; a.k_sh = k_sh;
   a.v_sb = v_sb; a.v_ss = v_ss; a.v_sh = v_sh;
   a.scale = scale;
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch_hd<32>(dtype, grid, s, a);
-    case 64: return launch_hd<64>(dtype, grid, s, a);
-    case 128: return launch_hd<128>(dtype, grid, s, a);
+    case 32: return launch_hd<32>(dtype, B, s, a);
+    case 64: return launch_hd<64>(dtype, B, s, a);
+    case 128: return launch_hd<128>(dtype, B, s, a);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+
+// Resident blocks an SM for the kernel of (dtype, hd), from the occupancy
+// calculator (registers, shared memory, threads); -1 on error.
+extern "C" int flash_attention_blocks_per_sm(int dtype, int hd) {
+  switch (hd) {
+    case 32: return blocks_per_sm_hd<32>(dtype);
+    case 64: return blocks_per_sm_hd<64>(dtype);
+    case 128: return blocks_per_sm_hd<128>(dtype);
+    default: return -1;
   }
 }

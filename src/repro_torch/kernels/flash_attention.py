@@ -18,6 +18,7 @@ with absolute positions (chunk mode) needs a position-aware path.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -26,6 +27,12 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels.decode_attention import HEAD_DIMS, NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: query rows and key rows of the kernel's tiles (``kBlockQ``/``kBlockK``)
+BLOCK_Q = BLOCK_K = 64
+#: the bf16 kernel's softmax runs in base 2: scores scaled by hd^-0.5 *
+#: log2(e), masked scores and the running max start at -1e30 * log2(e)
+LOG2E = math.log2(math.e)
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,6 +78,81 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
 
 
+def _tile_range(q0: torch.Tensor, s: int, causal: bool,
+                window: Optional[int], block_q: int, block_k: int):
+    """The key tiles [lo, hi] that the query tile starting at q0 reads
+    (``tile_range`` in the CUDA source): tiles wholly above the diagonal
+    (causal) or wholly before the window of every row are skipped."""
+    n_k = -(-s // block_k)
+    q_last = torch.clamp(q0 + block_q, max=s) - 1
+    hi = q_last // block_k if causal else torch.full_like(q0, n_k - 1)
+    lo = torch.zeros_like(q0)
+    if window is not None:
+        t = q0 - window - (block_k - 1)
+        lo = torch.where(t >= 0, torch.div(t, block_k, rounding_mode="floor")
+                         + 1, lo)
+    return lo, hi
+
+
+def flash_attention_tiled_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, causal: bool = True,
+                                window: Optional[int] = None,
+                                block_q: int = BLOCK_Q,
+                                block_k: int = BLOCK_K,
+                                p_dtype: torch.dtype = torch.float32
+                                ) -> torch.Tensor:
+    """The bf16 CUDA kernel's tile loop in plain PyTorch (the tests use it;
+    the main path does not). Same arguments and result as
+    :func:`flash_attention_plain`.
+
+    Each query tile of ``block_q`` rows walks the key tiles of
+    :func:`_tile_range` in order. Scores are scaled by
+    f32(hd^-0.5) * f32(log2 e); a masked score takes -1e30 * log2(e), the
+    running max starts there, and keys past S are excluded outright (the
+    ragged last tile is narrower). The online softmax runs in base 2:
+    m' = max(m, max t), l' = l 2^(m - m') + sum 2^(t - m'), acc' =
+    acc 2^(m - m') + P V with P = 2^(t - m') rounded to ``p_dtype`` (the
+    kernel feeds bf16 P to the tensor cores; l sums the unrounded P). The
+    output is acc / max(l, 1e-30) in q's dtype."""
+    b, s, h, kh, hd = _check_shapes(q, k, v, window)
+    g = h // kh
+    f32 = torch.float32
+    scale = (torch.tensor(hd ** -0.5, dtype=f32)
+             * torch.tensor(LOG2E, dtype=f32)).to(q.device)
+    masked = torch.tensor(NEG_INF * LOG2E, dtype=f32, device=q.device)
+    qf = q.float().transpose(1, 2)  # (B, H, S, hd)
+    kf = k.float().transpose(1, 2).repeat_interleave(g, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(g, dim=1)
+    rows = torch.arange(s, device=q.device)
+    lo, hi = _tile_range(rows - rows % block_q, s, causal, window, block_q,
+                         block_k)
+    m = masked.expand(b, h, s).clone()
+    l = torch.zeros((b, h, s), dtype=f32, device=q.device)
+    acc = torch.zeros((b, h, s, hd), dtype=f32, device=q.device)
+    for kt in range(-(-s // block_k)):
+        live = (lo <= kt) & (kt <= hi)  # rows whose query tile reads tile kt
+        if not bool(live.any()):
+            continue
+        k0, k1 = kt * block_k, min((kt + 1) * block_k, s)
+        t = (qf @ kf[:, :, k0:k1].transpose(-1, -2)) * scale
+        diff = rows[:, None] - torch.arange(k0, k1, device=q.device)[None]
+        ok = torch.ones_like(diff, dtype=torch.bool)
+        if causal:
+            ok = ok & (diff >= 0)
+        if window is not None:
+            ok = ok & (diff < window)
+        t = torch.where(ok, t, masked)
+        m_new = torch.maximum(m, t.amax(dim=-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(t - m_new[..., None])
+        pv = p.to(p_dtype).float() @ vf[:, :, k0:k1]
+        m = torch.where(live, m_new, m)
+        l = torch.where(live, l * corr + p.sum(dim=-1), l)
+        acc = torch.where(live[:, None], acc * corr[..., None] + pv, acc)
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.transpose(1, 2).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
@@ -86,8 +168,20 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.argtypes = (
             [i] + [p] * 4 + [i] * 7 + [i64] * 9 + [ctypes.c_float, i, p])
         lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_blocks_per_sm.argtypes = [i, i]
+        lib.flash_attention_blocks_per_sm.restype = ctypes.c_int
         _argtypes_set = True
     return lib
+
+
+def blocks_per_sm(dtype: torch.dtype, hd: int) -> int:
+    """Resident blocks an SM of the kernel for (dtype, hd), from the CUDA
+    occupancy calculator on the current device."""
+    n = _lib().flash_attention_blocks_per_sm(_DTYPES[dtype], hd)
+    if n < 0:
+        raise RuntimeError(f"flash_attention: no occupancy for {dtype}, "
+                           f"hd {hd}")
+    return n
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,7 +21,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     MIN_SPLIT_ROWS, decode_attention_cuda, decode_attention_paged_cuda,
     decode_attention_split_plain, split_rows_for)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_plain)
+    BLOCK_K, BLOCK_Q, _tile_range, blocks_per_sm, flash_attention_cuda,
+    flash_attention_plain, flash_attention_tiled_plain)
 from repro_torch.kernels.image_complexity import image_stats_cuda  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")
@@ -356,6 +357,76 @@ def test_flash_plain_ragged_length(s):
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=RTOL, atol=ATOL)
 
 
+# the bf16 kernel's own tile loop (flash_attention_tiled_plain), in f32
+# against the Pallas kernel and the plain version (f32 tolerance 1e-5: the
+# only differences are the f32 summation order and exp2 against exp)
+TILED_F32_TOL = 1e-5
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 64), (False, 40)])
+@pytest.mark.parametrize("s,h,kh,hd", [
+    (128, 4, 4, 32),   # MHA
+    (256, 8, 2, 64),   # GQA
+    (128, 4, 1, 128),  # MQA, the serving head dim
+])
+def test_flash_tiled_plain_matches_pallas(s, h, kh, hd, causal, window):
+    """At S a multiple of 128, where the Pallas kernel takes S."""
+    q, k, v = _flash_inputs(s * 3 + hd, 2, s, h, kh, hd)
+    want = jops.flash_attention(*map(jnp.asarray, (q, k, v)), causal=causal,
+                                window=window, block_q=64, block_k=64,
+                                interpret=True)
+    got = flash_attention_tiled_plain(*map(torch.as_tensor, (q, k, v)),
+                                      causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=TILED_F32_TOL,
+                               atol=TILED_F32_TOL)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 40), (False, 40)])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 97, 272, 320, 512])
+def test_flash_tiled_plain_matches_plain_any_length(s, causal, window, hd):
+    """Ragged S (keys past S excluded, the last tile narrower) and a window
+    of 40, under which the first key tile a query tile reads is wholly
+    masked for its last rows once S passes 104."""
+    q, k, v = map(torch.as_tensor, _flash_inputs(s + hd, 1, s, 4, 2, hd))
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    got = flash_attention_tiled_plain(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TILED_F32_TOL,
+                               atol=TILED_F32_TOL)
+    # P rounded to bf16 as the kernel feeds it: within the bf16 tolerance
+    got16 = flash_attention_tiled_plain(q, k, v, causal=causal, window=window,
+                                        p_dtype=torch.bfloat16)
+    np.testing.assert_allclose(got16.numpy(), want.numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("s,causal,window", [
+    (320, True, None), (97, False, None), (512, True, 40), (300, False, 64),
+    (1, True, 1), (200, True, 130)])
+def test_flash_tile_range_skips_only_wholly_masked_tiles(s, causal, window):
+    """A query tile reads exactly the key tiles that hold an attended
+    (row, col) for one of its rows below S."""
+    rows = torch.arange(s)
+    diff = rows[:, None] - rows[None, :]
+    ok = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        ok &= diff >= 0
+    if window is not None:
+        ok &= diff < window
+    q0 = torch.arange(0, s, BLOCK_Q)
+    lo, hi = _tile_range(q0, s, causal, window, BLOCK_Q, BLOCK_K)
+    for i, start in enumerate(q0.tolist()):
+        for kt in range(-(-s // BLOCK_K)):
+            attended = bool(ok[start:start + BLOCK_Q,
+                               kt * BLOCK_K:(kt + 1) * BLOCK_K].any())
+            assert attended == (int(lo[i]) <= kt <= int(hi[i])), (start, kt)
+    if window == 40 and s == 512:  # some rows read a wholly masked tile
+        assert not bool(ok[511, int(lo[-1]) * BLOCK_K:
+                           (int(lo[-1]) + 1) * BLOCK_K].any())
+
+
 def test_flash_wrapper_on_cpu_takes_plain_version():
     from repro_torch.models import attention as tattn
 
@@ -463,6 +534,84 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, causal,
     assert tops.flash_attention.launches == before + 1
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# the bf16 kernel against its own tile loop with P rounded to bf16: the two
+# differ only in the f32 summation order and the exp2 rounding, so the error
+# is one bf16 ulp of the output (at most 2^-7 of it) where the two f32 results
+# round apart, plus rare one-ulp flips of a bf16 P (each moves the output by
+# at most 2^-8 of that key's weight times |v - o|): 8e-3, against 2e-2 for
+# the plain version with f32 P
+TILED_BF16_TOL = 8e-3
+
+FLASH_TILED_CASES = {
+    "edge R=4 S=320": (4, 320, 12, 2, 128, True, None, "contiguous"),
+    "cloud R=4 S=320": (4, 320, 28, 4, 128, True, None, "contiguous"),
+    "S=1": (2, 1, 12, 2, 128, True, None, "contiguous"),
+    "S=64": (2, 64, 12, 2, 128, True, None, "contiguous"),
+    "S=65": (2, 65, 12, 2, 128, True, None, "contiguous"),
+    "cloud R=1 S=4096": (1, 4096, 28, 4, 128, True, None, "contiguous"),
+    "window 40, leading tiles masked": (2, 320, 12, 2, 128, True, 40,
+                                        "contiguous"),
+    "non-causal window hd 32": (1, 160, 4, 2, 32, False, 64, "contiguous"),
+    "non-causal hd 64 unaligned q": (2, 200, 8, 2, 64, False, None,
+                                     "unaligned"),
+    "q (B,H,S,hd) view S=272": (1, 272, 12, 2, 128, True, None, "bhsd"),
+}
+
+
+def _flash_cuda_inputs(cuda, dt, b, s, h, kh, hd, layout, seed):
+    q, k, v = (torch.as_tensor(x, device=cuda).to(dt)
+               for x in _flash_inputs(seed, b, s, h, kh, hd))
+    if layout == "bhsd":  # q a transposed view of a (B, H, S, hd) tensor
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif layout == "unaligned":  # odd offset, row stride hd + 1
+        wide = torch.zeros((b, s, h, hd + 1), dtype=dt, device=cuda)
+        wide[..., 1:] = q
+        q = wide[..., 1:]
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FLASH_TILED_CASES))
+def test_flash_kernel_matches_tiled_plain(cuda, case):
+    b, s, h, kh, hd, causal, window, layout = FLASH_TILED_CASES[case]
+    q, k, v = _flash_cuda_inputs(cuda, torch.bfloat16, b, s, h, kh, hd,
+                                 layout, s + h)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window).float()
+    tiled = flash_attention_tiled_plain(q, k, v, causal=causal, window=window,
+                                        p_dtype=torch.bfloat16).float()
+    torch.testing.assert_close(got, tiled, rtol=TILED_BF16_TOL,
+                               atol=TILED_BF16_TOL)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_captures_in_cuda_graph(cuda):
+    """The launch records into a CUDA graph (the shared-memory opt-in is
+    made once, outside any stream work); a replay equals an eager call."""
+    q, k, v = _flash_cuda_inputs(cuda, torch.bfloat16, 4, 320, 28, 4, 128,
+                                 "contiguous", 15)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention_cuda(q, k, v)  # warm: build, load, opt-in
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention_cuda(q, k, v)
+    q.copy_(q * -1)  # new queries, same buffers
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, flash_attention_cuda(q, k, v))
+
+
+@pytest.mark.gpu
+def test_flash_bf16_kernel_holds_three_blocks_an_sm(cuda):
+    """168 registers and 66,560 bytes of shared memory (q and three K/V
+    tile slots) leave room for 3 blocks of 4 warps."""
+    assert blocks_per_sm(torch.bfloat16, 128) >= 3
 
 
 # (b, h, kh, hd, t, fill, window, all-masked last slot, live rows, page,

@@ -5,7 +5,11 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
   1. device name, count, and nvidia-smi's name and power limit;
   2. build every CUDA source with nvcc (one process per source, in
      parallel) and print the -Xptxas -v register / shared-memory lines;
-  3. hold each kernel against its plain PyTorch version on the card, in f32
+  3. hold the image-statistics kernel against its plain version at the
+     serving, degenerate, flat and 1024x1024 shapes (histogram exact, the
+     five scores within 1e-6, repeated calls bitwise equal) and time it
+     from a replayed CUDA graph beside an empty kernel's launch floor;
+     hold each attention kernel against its plain PyTorch version, in f32
      and bf16, at the serving shapes and at head dims 32 and 64, with an
      all-masked slot, a window, a ragged context or sequence, a
      context-bucket view, a non-causal case and non-contiguous q (decode
@@ -23,8 +27,13 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      through attn_impl "auto" and "cuda" on the same weights (logit
      difference, argmax agreement, wall time), then serve 8 requests of the
      launcher's mix through ClusterServer on the paged KV pool with
-     attn_impl "cuda" (prefill through the flash-attention kernel);
+     attn_impl "cuda" (prefill through the flash-attention kernel),
+     then time the two-step image score against the fused launch and the
+     copy of a numpy image to the card;
   5. the "auto" models on the dense KV pool, 2 requests (plain prefill);
+     both serves print the score time per request and fail unless each
+     scored image made one kernel launch whose c_img matches the plain CPU
+     path's (1e-6) with the same route;
   6. at reduced size in f32, attn_impl and decode_impl "cuda" and "torch"
      give the same tokens, paged and dense, with prompts whose length falls
      on and off a multiple of 64;
@@ -137,61 +146,180 @@ def _rand(shape, dtype, gen, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def check_image(records):
+def _image_cases(gen):
+    """(label, (B, H, W) f32 batch on the card, real-valued?) for phase 3:
+    integer pixels at the serving and test shapes, degenerate images, the
+    paper's 1024x1024 reference resolution, flat images (every pixel of a
+    warp in one bin) and the launcher's own 64x64 image."""
     import numpy as np
     import torch
 
     from repro_torch.data.synthetic import make_image
-    from repro_torch.kernels.image_complexity import (image_stats_cuda,
-                                                      image_stats_plain)
+
+    def rand(shape):
+        return torch.randint(0, 256, shape, generator=gen,
+                             device="cuda").float()
+
+    cases = [(str(s), rand(s), False) for s in (
+        (1, 64, 64), (2, 33, 65), (3, 128, 96), (1, 256, 256), (1, 1, 1),
+        (1, 1, 7), (1, 7, 1), (1, 1024, 1024), (8, 1024, 1024))]
+    for v in (255.0, 0.0):
+        cases.append((f"flat {v:g} (1, 1024, 1024)", torch.full(
+            (1, 1024, 1024), v, device="cuda"), False))
+    img = make_image(np.random.default_rng(0), 0.7, 64, 64)
+    cases.append(("launcher 64x64", torch.as_tensor(
+        img, dtype=torch.float32, device="cuda")[None], True))
+    return cases
+
+
+# The five scores against image_complexity_from_stats on the plain stats.
+SCORE_TOL = 1e-6
+
+
+def check_image(records):
+    import torch
+
+    from repro_torch.config import ComplexityConfig
+    from repro_torch.kernels.image_complexity import (
+        SCORE_KEYS, image_complexity_cuda, image_stats_cuda,
+        image_stats_grid, image_stats_plain)
+    from repro_torch.kernels.ops import image_complexity_from_stats
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    cc = ComplexityConfig()
     worst = 0.0
     # The kernel sums in double, the plain version in f32. On integer-valued
     # pixels every stencil value is an integer, so the f32 sums are exact up
     # to 2^24 and rtol 2e-5 / atol 1e-3 hold; on the launcher's real-valued
     # images the near-zero Laplacian sum cancels, and its f32 rounding is
     # bounded by 2e-7 * sum|lap| <= 2e-7 * 8 * 255 * H * W.
-    rng = np.random.default_rng(0)
-    cases = [(s, torch.randint(0, 256, s, generator=gen, device="cuda")
-              .float()) for s in ((1, 64, 64), (2, 33, 65), (3, 128, 96),
-                                  (1, 256, 256))]
-    cases.append(("launcher 64x64", torch.as_tensor(
-        make_image(rng, 0.7, 64, 64), dtype=torch.float32,
-        device="cuda")[None]))
-    for label, imgs in cases:
-        got, want = image_stats_cuda(imgs), image_stats_plain(imgs)
+    cases = _image_cases(gen)
+    for label, imgs, real in cases:
+        got, want = image_complexity_cuda(imgs, cc), image_stats_plain(imgs)
+        again = image_stats_cuda(imgs)
         torch.cuda.synchronize()
         if not torch.equal(got["hist"], want["hist"]):
             fail(f"image_stats histogram differs at {label}")
-        _, h, w = imgs.shape
-        real = isinstance(label, str)
+        b, h, w = imgs.shape
         for k in ("sobel_sum", "lap_sum", "lap_sq_sum"):
             atol = 2e-7 * 8 * 255 * h * w if (real and k == "lap_sum") else 1e-3
             if not torch.allclose(got[k], want[k], rtol=2e-5, atol=atol):
                 fail(f"image_stats {k} at {label}: {got[k]} vs {want[k]}")
+            if not torch.equal(got[k], again[k]):
+                fail(f"image_stats {label}: two eager calls differ in {k}")
         errs = {k: float((got[k] - want[k]).abs().max())
                 for k in ("sobel_sum", "lap_sum", "lap_sq_sum")}
-        err = max(errs.values())
+        scores = image_complexity_from_stats(want, h, w, cc)
+        s_err = max(float((got[k] - scores[k]).abs().max())
+                    for k in SCORE_KEYS)
+        if s_err > SCORE_TOL:
+            fail(f"image_complexity scores at {label}: max |err| {s_err}")
         if real:
-            worst = err
-        print(f"  image_stats {label}: hist exact, |err| "
+            worst = max(errs.values())
+        rows, bands = image_stats_grid(b, h, w)
+        print(f"  image_stats {label} (grid {bands}x{b}, {rows} rows a "
+              f"band): hist exact, |err| "
               + ", ".join(f"{k} {e:.3g} of {float(want[k].abs().max()):.6g}"
-                          for k, e in errs.items()))
-    imgs = cases[-1][1]
-    ms = cuda_time_ms(lambda: image_stats_cuda(imgs), iters=200)
-    plain = cuda_time_ms(lambda: image_stats_plain(imgs), iters=200)
-    b, h, w = imgs.shape
-    bd, by = bound_ms(b * h * w * 4 + b * (4 + 256) * 4, 30.0 * b * h * w,
-                      "float32")
-    print(f"  image_stats (1,64,64) f32: kernel {ms * 1e3:.2f} us, plain "
-          f"{plain * 1e3:.2f} us, bound {bd * 1e3:.4f} us ({by})")
+                          for k, e in errs.items())
+              + f"; scores |err| {s_err:.3g} (tol {SCORE_TOL}); two calls "
+              f"bitwise equal")
+    # timing: at 64x64 sixteen calls on one input (a freshly copied request
+    # image sits in L2; sixteen calls a graph spread the graph's own launch
+    # cost); at 1024x1024, launches rotate over inputs larger than the 50 MB
+    # L2
+    big = [torch.randint(0, 256, (1, 1024, 1024), generator=gen,
+                         device="cuda").float() for _ in range(16)]
+    batch = [torch.randint(0, 256, (8, 1024, 1024), generator=gen,
+                           device="cuda").float() for _ in range(4)]
+    flat = [torch.full((1, 1024, 1024), 255.0, device="cuda")
+            for _ in range(16)]
+    shapes, replayed = [], []
+    for label, inputs in (("(1,64,64) x16 one input", [cases[0][1]] * 16),
+                          ("(1,1024,1024) x16 rotated", big),
+                          ("(8,1024,1024) x4 rotated", batch),
+                          ("flat 255 (1,1024,1024) x16 rotated", flat)):
+        shape, outs = time_image(label, inputs)
+        shapes.append(shape)
+        replayed.append((label, inputs, outs))
+    # bitwise: a graph replay equals an eager call, and two eager calls agree
+    for label, inputs, outs in replayed:
+        for x, out in zip(inputs, outs):
+            a, b = image_stats_cuda(x), image_stats_cuda(x)
+            for k in out:
+                if not torch.equal(a[k], b[k]):
+                    fail(f"image_stats {label}: two eager calls differ in {k}")
+                if not torch.equal(out[k], a[k]):
+                    fail(f"image_stats {label}: graph replay differs from "
+                         f"eager in {k}")
+    print("  image_stats: graph replays equal eager calls and repeated eager "
+          "calls agree, bitwise, at every timed shape")
+    main = shapes[0]
     records["image_stats"] = {
         "name": "image_stats", "route": "cuda",
         "source": "src/repro_torch/csrc/image_stats.cu",
         "replaces": "src/repro/kernels/image_complexity.py:66",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bd,
-        "bound_by": by, "library_ms": None}
+        "max_abs_err": worst, "ms": main["device_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "device_ms": main["device_ms"], "eager_ms": main["eager_ms"],
+        "shapes": shapes}
+
+
+def _empty_launch():
+    """A zero-argument call that launches an empty one-block kernel through
+    the same ctypes path as the statistics kernel (the launch floor)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import runtime
+
+    lib = runtime.load("image_stats")
+    fn = lib.image_stats_empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        runtime.check(fn(1, torch.cuda.current_stream().cuda_stream),
+                      "empty kernel")
+    return launch
+
+
+def time_image(label, inputs):
+    """Time the statistics kernel on ``inputs`` (one call each, in order):
+    device time per call from a replayed CUDA graph (the kernel, then an
+    empty kernel launched the same way, in turns: kernel, empty, empty,
+    kernel), the eager wall per call of both, and the plain version's
+    device time from a graph. Returns the record and the first graph's
+    outputs (for the bitwise check against eager calls)."""
+    from repro_torch.kernels.image_complexity import (image_stats_cuda,
+                                                      image_stats_plain)
+    n = len(inputs)
+    fns = [lambda x=x: image_stats_cuda(x) for x in inputs]
+    empty = [_empty_launch()] * n
+    replays = max(10, -(-320 // n))
+    k1, outs = graph_time_ms(fns, replays)
+    f1, _ = graph_time_ms(empty, replays)
+    f2, _ = graph_time_ms(empty, replays)
+    k2, _ = graph_time_ms(fns, replays)
+    dev, floor = (k1 + k2) / 2, (f1 + f2) / 2
+    rounds = max(2, -(-200 // n))
+    eager = eager_time_ms(fns, rounds)
+    eager_floor = eager_time_ms(empty, rounds)
+    plain_ms = graph_time_ms([lambda x=x: image_stats_plain(x)
+                              for x in inputs], 2)[0]
+    b, h, w = inputs[0].shape
+    bd, by = bound_ms(4.0 * b * h * w + 4.0 * b * (4 + 256 + 5),
+                      30.0 * b * h * w, "float32")
+    print(f"  image_stats {label}: device {dev * 1e3:.3f} us "
+          f"({k1 * 1e3:.3f}, {k2 * 1e3:.3f}), launch floor (empty kernel) "
+          f"{floor * 1e3:.3f} us, eager wall {eager * 1e3:.2f} us (empty "
+          f"{eager_floor * 1e3:.2f}), plain device {plain_ms * 1e3:.2f} us, "
+          f"bound {bd * 1e3:.4f} us ({by}), {bd / dev:.1%} of it")
+    return {"shape": label, "device_ms": dev, "eager_ms": eager,
+            "floor_ms": floor, "eager_floor_ms": eager_floor,
+            "plain_ms": plain_ms, "bound_ms": bd, "bound_by": by,
+            "share_of_bound": bd / dev}, outs
 
 
 def graph_time_ms(fns, replays: int):
@@ -679,6 +807,118 @@ def launcher_mix(n: int, seed: int = 0):
     return out
 
 
+def _watch_image_routes(server):
+    """Wrap the scheduler's policy so that each decision on an image request
+    records its inputs (request, scores, state snapshot, thresholds); the
+    route is recomputed from them after the run. Returns the unwrapped
+    ``decide`` and the records."""
+    policy = server.scheduler.policy
+    decide, seen = policy.decide, []
+
+    def watched(request, scores, state):
+        mod = request.modalities.get("image")
+        if mod is not None and mod.data is not None:
+            seen.append((request, dict(scores), state, dict(policy.taus)))
+        return decide(request, scores, state)
+
+    policy.decide = watched
+    return decide, seen
+
+
+def _check_image_scores(server, decide, seen, launches: int, label: str):
+    """Every scored image request went through one kernel launch, its c_img
+    is within SCORE_TOL of the plain CPU path's, and the plain score routes
+    it the same way under the same state and thresholds."""
+    import numpy as np
+
+    from repro_torch.core import complexity as cx
+
+    sch = server.scheduler
+    policy = sch.policy
+    taus, worst = dict(policy.taus), 0.0
+    for req, scores, state, taus_then in seen:
+        img = np.asarray(req.modalities["image"].data, np.float32)[None]
+        plain = float(cx.image_complexity(img, sch.cc,
+                                          use_kernel=False)["c_img"][0])
+        err = abs(scores["image"] - plain)
+        worst = max(worst, err)
+        if err > SCORE_TOL:
+            fail(f"{label}: rid {req.rid} c_img {scores['image']} vs plain "
+                 f"CPU {plain}")
+        policy.taus = dict(taus_then)
+        routes = decide(req, scores, state).routes
+        if decide(req, dict(scores, image=plain), state).routes != routes:
+            fail(f"{label}: rid {req.rid} routes differ under the plain "
+                 f"score")
+    policy.taus = taus
+    n_img = len({req.rid for req, *_ in seen})
+    if launches != n_img:
+        fail(f"{label}: {launches} image_stats launches for {n_img} scored "
+             f"image requests")
+    print(f"  {label}: score time per request (MoAOffScheduler.score) "
+          f"{sch.score_time_s / sch.n_scored * 1e3:.3f} ms over "
+          f"{sch.n_scored}; {n_img} image requests scored in {launches} "
+          f"image_stats launches; c_img vs the plain CPU path max |err| "
+          f"{worst:.3g} (tol {SCORE_TOL}), routes unchanged")
+
+
+def time_score_paths():
+    """Host wall per image score on the card, to the score on the host (as
+    ``MoAOffScheduler.score`` reads it), in turns on the launcher's eight
+    64x64 images: the two-step path (the statistics kernel, then
+    ``image_complexity_from_stats``'s ~30 eager ops) against the fused
+    launch; and the host-to-device copy of a 64x64 and a 1024x1024 numpy
+    image (``core/complexity.py::_as_tensor``). Medians."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import ComplexityConfig
+    from repro_torch.kernels.image_complexity import (image_complexity_cuda,
+                                                      image_stats_cuda)
+    from repro_torch.kernels.ops import image_complexity_from_stats
+
+    cc = ComplexityConfig()
+    arrays = [img for _, img in launcher_mix(8)]
+    # as core/complexity.py hands them to the kernel (make_image's arrays
+    # are not C-ordered)
+    imgs = [torch.as_tensor(a[None], device="cuda").contiguous()
+            for a in arrays]
+    paths = {
+        "two-step": lambda x: float(image_complexity_from_stats(
+            image_stats_cuda(x), 64, 64, cc)["c_img"][0]),
+        "fused": lambda x: float(image_complexity_cuda(x, cc)["c_img"][0])}
+    walls = {name: [] for name in paths}
+    for fn in paths.values():
+        for x in imgs:
+            fn(x)  # warm
+    for _ in range(5):
+        for name in ("two-step", "fused", "fused", "two-step"):
+            t0 = time.perf_counter()
+            for x in imgs:
+                paths[name](x)
+            walls[name].append((time.perf_counter() - t0) / len(imgs))
+    big = np.random.default_rng(0).uniform(0, 255, (1024, 1024)).astype(
+        np.float32)
+    copies = {}
+    for name, arr in (("64x64", arrays[0]), ("1024x1024", big)):
+        t = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.as_tensor(arr[None], device="cuda")
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+        copies[name] = statistics.median(t)
+    med = {name: statistics.median(w) for name, w in walls.items()}
+    print(f"  image score wall per 64x64 request, to a host float, median "
+          f"of 10 passes over 8 images in turns: two-step (kernel + eager "
+          f"epilogue) {med['two-step'] * 1e6:.1f} us, fused "
+          f"{med['fused'] * 1e6:.1f} us | host-to-device copy of one numpy "
+          f"image (pageable), median of 21: 64x64 "
+          f"{copies['64x64'] * 1e6:.1f} us, 1024x1024 "
+          f"{copies['1024x1024'] * 1e6:.1f} us")
+
+
 def serve(engines, topo, n_requests: int, max_new: int, label: str):
     import torch
 
@@ -686,6 +926,7 @@ def serve(engines, topo, n_requests: int, max_new: int, label: str):
     from repro_torch.serving.tiers import ClusterServer
 
     server = ClusterServer(engines, topology=topo)
+    decide, seen = _watch_image_routes(server)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -696,6 +937,7 @@ def serve(engines, topo, n_requests: int, max_new: int, label: str):
     wall = time.perf_counter() - t0
     counts = ops.launches()
     server.close()
+    _check_image_scores(server, decide, seen, counts["image_stats"], label)
     if len(results) != n_requests:
         fail(f"{label}: {len(results)}/{n_requests} requests resolved")
     for r in results:
@@ -792,6 +1034,7 @@ def phase_serve_full(records):
         compare_prefill(e.model, model, e.params, f"{name} ({e.cfg.name})")
         flash[name] = TierEngine(model, e.params, sv)
     counts = serve(flash, topo, 8, 16, "paged full width, attn cuda")
+    time_score_paths()
     for name in ("image_stats", "flash_attention", "decode_attention_paged"):
         if counts[name] <= 0:
             fail(f"paged serve never launched {name}")

@@ -3,7 +3,8 @@
 
 Image complexity (§3.1.1): weighted sum of resolution / edge-density /
 entropy-texture / sharpness indicators from the image-statistics kernel
-(``repro_torch.kernels``), with the plain PyTorch oracle as fallback.
+(``repro_torch.kernels``), which computes the statistics and the scores in
+one launch on the card; the plain PyTorch oracle runs on the CPU.
 
 Text complexity (§3.1.2): token-length + entity-density terms over the toy
 tokenizer's token classes, computed in float32 in the JAX package's order
@@ -43,18 +44,18 @@ def image_complexity(imgs: ArrayLike,
     """imgs: (B, H, W) float32 in [0,255] -> dict incl. ``c_img`` (B,).
 
     ``use_kernel=True`` goes through the kernel wrapper: a numpy batch
-    moves to the card (``cuda``), a tensor stays on its device (a CPU
-    tensor takes the plain version there). ``use_kernel=False`` runs the
-    plain PyTorch oracle, on the CPU for a numpy batch."""
+    moves to the card (``cuda``), a tensor stays on its device; on the card
+    one kernel launch gives the statistics and the scores, a CPU tensor
+    takes the plain version. ``use_kernel=False`` runs the plain PyTorch
+    oracle, on the CPU for a numpy batch."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
 
     if use_kernel:
         x = _as_tensor(imgs, "cuda")
-        stats = kops.image_stats(x.float().contiguous())
-    else:
-        x = _as_tensor(imgs, "cpu")
-        stats = kref.image_stats_batch_ref(x)
+        return kops.image_complexity(x.float().contiguous(), cc)
+    x = _as_tensor(imgs, "cpu")
+    stats = kref.image_stats_batch_ref(x)
     return kops.image_complexity_from_stats(stats, x.shape[1], x.shape[2], cc)
 
 

@@ -24,7 +24,8 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_paged_plain, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
-from repro_torch.kernels.image_complexity import (image_stats_cuda,
+from repro_torch.kernels.image_complexity import (image_complexity_cuda,
+                                                  image_stats_cuda,
                                                   image_stats_plain)
 
 
@@ -79,9 +80,16 @@ def image_complexity_from_stats(stats: dict, h: int, w: int,
 
 def image_complexity(imgs: torch.Tensor,
                      cc: ComplexityConfig = ComplexityConfig()) -> dict:
-    """End-to-end §3.1.1: (B,H,W) images -> complexity components + c_img."""
-    stats = image_stats(imgs)
-    return image_complexity_from_stats(stats, imgs.shape[1], imgs.shape[2], cc)
+    """End-to-end §3.1.1: (B,H,W) images -> complexity components + c_img,
+    with the raw stats. On a CUDA tensor one launch of the statistics kernel
+    computes both (counted in ``image_stats.launches``)."""
+    if _route(imgs, "image_complexity"):
+        out = image_complexity_cuda(imgs, cc)
+        image_stats.launches += 1
+        return out
+    stats = image_stats_plain(imgs)
+    return {**stats, **image_complexity_from_stats(
+        stats, imgs.shape[1], imgs.shape[2], cc)}
 
 
 # ---------------------------------------------------------------------------

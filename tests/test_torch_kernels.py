@@ -23,7 +23,9 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BLOCK_K, BLOCK_Q, _tile_range, blocks_per_sm, flash_attention_cuda,
     flash_attention_plain, flash_attention_tiled_plain)
-from repro_torch.kernels.image_complexity import image_stats_cuda  # noqa: E402
+from repro_torch.kernels.image_complexity import (  # noqa: E402
+    SCORE_KEYS, image_complexity_cuda, image_stats_banded_plain,
+    image_stats_cuda, image_stats_grid, image_stats_plain)
 
 torch.set_float32_matmul_precision("highest")
 
@@ -80,6 +82,95 @@ def test_image_complexity_scores_match_jax(seed):
     for k in ("c_res", "c_edge", "c_ent", "c_lap", "c_img"):
         np.testing.assert_allclose(got[k].numpy(), _np(want[k]), rtol=0,
                                    atol=1e-6)
+
+
+# (shape, rows per band, fill): degenerate images, a ragged last band (33
+# rows in bands of 8, 7 in bands of 3), unaligned rows (W=65), the grid's
+# own band height (None), and a flat image (every pixel in one bin)
+BANDED_CASES = {
+    "1x1": ((1, 1, 1), 1, None),
+    "1x7": ((1, 1, 7), 1, None),
+    "7x1 ragged": ((1, 7, 1), 3, None),
+    "33x65 ragged": ((2, 33, 65), 8, None),
+    "33x65 one band": ((2, 33, 65), None, None),
+    "128x96 bands of 16": ((3, 128, 96), 16, None),
+    "128x96 bands of 5": ((3, 128, 96), 5, None),
+    "flat 255": ((1, 64, 64), 8, 255.0),
+}
+
+
+@pytest.mark.parametrize("case", list(BANDED_CASES))
+def test_image_stats_banded_plain_matches_jax(case):
+    shape, rows, fill = BANDED_CASES[case]
+    rng = np.random.default_rng(sum(shape))
+    imgs = (np.full(shape, fill, np.float32) if fill is not None
+            else rng.integers(0, 256, shape).astype(np.float32))
+    got = image_stats_banded_plain(torch.as_tensor(imgs), rows)
+    want = jops.image_stats(jnp.asarray(imgs), interpret=True)
+    np.testing.assert_array_equal(got["hist"].numpy(), _np(want["hist"]))
+    for k in ("sobel_sum", "lap_sum", "lap_sq_sum"):
+        np.testing.assert_allclose(got[k].numpy(), _np(want[k]), rtol=2e-5,
+                                   atol=1e-3)
+    want = jops.image_complexity(jnp.asarray(imgs), ComplexityConfig(),
+                                 interpret=True)
+    for k in SCORE_KEYS:
+        np.testing.assert_allclose(got[k].numpy(), _np(want[k]), rtol=0,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("rows", [None, 7, 16])
+def test_image_stats_banded_epilogue_matches_jax(rows):
+    """The kernel's f32 epilogue (fixed-tree entropy sum) on real-valued
+    images, against the JAX package's scores."""
+    from repro.data.synthetic import make_image
+
+    rng = np.random.default_rng(5)
+    imgs = np.stack([make_image(rng, u, 48, 64) for u in (0.1, 0.5, 0.9)])
+    cc = ComplexityConfig(edge_p5=1.0, edge_p95=40.0, lap_p5=20.0,
+                          lap_p95=1500.0)
+    want = jops.image_complexity(jnp.asarray(imgs), cc, interpret=True)
+    got = image_stats_banded_plain(torch.as_tensor(imgs), rows, cc)
+    for k in SCORE_KEYS:
+        np.testing.assert_allclose(got[k].numpy(), _np(want[k]), rtol=0,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,grid", [
+    ((1, 64, 64), (64, 1)),        # the launcher's image: one block
+    ((8, 1024, 1024), (32, 32)),   # 256 blocks: two an SM of 132
+    ((1, 1024, 1024), (8, 128)),
+    ((2, 33, 65), (33, 1)),
+])
+def test_image_stats_grid(shape, grid):
+    assert image_stats_grid(*shape) == grid
+    rows, bands = grid
+    assert (bands - 1) * rows < shape[1] <= bands * rows
+
+
+def test_image_stats_grid_multi_band_batches_fit_the_counters():
+    """A launch takes tickets only with more than one band; the grid gives
+    that only to batches of at most TARGET_BLOCKS images, the length of a
+    stream's counter row."""
+    from repro_torch.kernels.image_complexity import TARGET_BLOCKS
+
+    for b in (1, 2, 8, 100, TARGET_BLOCKS, TARGET_BLOCKS + 1, 4096):
+        for h, w in ((1024, 1024), (4096, 64), (33, 65), (10_000, 1)):
+            rows, bands = image_stats_grid(b, h, w)
+            assert bands == 1 or b <= TARGET_BLOCKS, (b, h, w)
+            assert (bands - 1) * rows < h <= bands * rows
+
+
+def test_image_complexity_on_cpu_makes_no_launch():
+    imgs = torch.as_tensor(np.random.default_rng(6).uniform(
+        0, 255, (2, 24, 40)).astype(np.float32))
+    before = tops.image_stats.launches
+    got = tops.image_complexity(imgs)  # CPU tensor -> plain, no launch
+    assert tops.image_stats.launches == before
+    stats = image_stats_plain(imgs)
+    want = tops.image_complexity_from_stats(stats, 24, 40, ComplexityConfig())
+    for k in SCORE_KEYS:
+        assert torch.equal(got[k], want[k])
+    assert torch.equal(got["hist"], stats["hist"])
 
 
 def test_calibrate_percentiles_and_audio_scores_match_jax():
@@ -472,15 +563,99 @@ def cuda():
     return torch.device("cuda")
 
 
+def _image_batch(device, shape, fill=None, seed=0):
+    if fill is not None:
+        return torch.full(shape, fill, dtype=torch.float32, device=device)
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, 256, shape).astype(np.float32), device=device)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1, 64, 64), (2, 33, 65), (3, 128, 96)])
-def test_image_stats_kernel_matches_plain(cuda, shape):
-    imgs = torch.as_tensor(np.random.default_rng(0).integers(
-        0, 256, shape).astype(np.float32), device=cuda)
+@pytest.mark.parametrize("shape,fill", [
+    ((1, 64, 64), None), ((2, 33, 65), None), ((3, 128, 96), None),
+    ((1, 256, 256), None), ((1, 1, 1), None), ((1, 1, 7), None),
+    ((1, 7, 1), None), ((1, 1024, 1024), None), ((2, 1024, 1024), None),
+    ((1, 1024, 1024), 255.0), ((1, 1024, 1024), 0.0), ((2, 33, 65), 255.0)])
+def test_image_stats_kernel_matches_plain(cuda, shape, fill):
+    imgs = _image_batch(cuda, shape, fill)
     got, want = image_stats_cuda(imgs), tref.image_stats_batch_ref(imgs)
     assert torch.equal(got["hist"], want["hist"])
     for k in ("sobel_sum", "lap_sum", "lap_sq_sum"):
         torch.testing.assert_close(got[k], want[k], rtol=2e-5, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 48, 64), (1, 1024, 1024)])
+def test_image_complexity_kernel_matches_plain_scores(cuda, shape):
+    from repro_torch.data.synthetic import make_image
+
+    rng = np.random.default_rng(7)
+    imgs = torch.as_tensor(np.ascontiguousarray(np.stack([
+        make_image(rng, u, *shape[1:]) for u in np.linspace(
+            0.1, 0.9, shape[0])])), device=cuda)
+    cc = ComplexityConfig()
+    got = image_complexity_cuda(imgs, cc)
+    want = tops.image_complexity_from_stats(image_stats_plain(imgs),
+                                            *shape[1:], cc)
+    banded = image_stats_banded_plain(imgs, cc=cc)
+    for k in SCORE_KEYS:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-6)
+        torch.testing.assert_close(got[k], banded[k], rtol=0, atol=1e-6)
+    before = tops.image_stats.launches
+    out = tops.image_complexity(imgs, cc)  # the fused launch, counted
+    assert tops.image_stats.launches == before + 1
+    assert torch.equal(out["c_img"], got["c_img"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 33, 65), (8, 1024, 1024)])
+def test_image_stats_kernel_is_bitwise_repeatable(cuda, shape):
+    imgs = _image_batch(cuda, shape, seed=8)
+    a, b = image_complexity_cuda(imgs), image_complexity_cuda(imgs)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.gpu
+def test_image_stats_kernel_captures_in_cuda_graph(cuda):
+    """No memset and no allocation in the C code, counters left at zero:
+    the launch records into a CUDA graph, and replays equal eager calls."""
+    imgs = _image_batch(cuda, (2, 1024, 1024), seed=9)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        image_complexity_cuda(imgs)  # warm: build, load, counters
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = image_complexity_cuda(imgs)
+    for _ in range(2):
+        imgs.copy_(255.0 - imgs)  # new pixels, same buffer
+        graph.replay()
+        torch.cuda.synchronize()
+        want = image_complexity_cuda(imgs)
+        for k in want:
+            assert torch.equal(out[k], want[k]), k
+
+
+@pytest.mark.gpu
+def test_image_stats_kernel_on_two_streams(cuda):
+    """Calls on two streams in turn (each stream its own counters) give
+    the eager result on the default stream."""
+    imgs = [_image_batch(cuda, (1, 1024, 1024), seed=s) for s in (10, 11)]
+    want = [image_complexity_cuda(x) for x in imgs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(3):
+        for s, x in zip(streams, imgs):
+            with torch.cuda.stream(s):
+                outs.append(image_complexity_cuda(x))
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        for k in out:
+            assert torch.equal(out[k], want[i % 2][k]), (i, k)
 
 
 @pytest.mark.gpu

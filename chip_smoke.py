@@ -37,10 +37,26 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
   6. at reduced size in f32, attn_impl and decode_impl "cuda" and "torch"
      give the same tokens, paged and dense, with prompts whose length falls
      on and off a multiple of 64;
-  7. ``python -m repro_torch.launch.serve --requests 4 --max-new 4``.
+  8. warm serving and migration: (a) at full width (bf16, paged, attn_impl
+     "cuda") 3 sessions of 3 turns with an image each, then 4 text
+     requests sharing a long prefix, through ClusterServer(sessions=True):
+     fails unless a turn resumed, a prefix hit shared its pages copy-free,
+     every warm admission was charged only its suffix and the drained
+     pools' references are the prefix stores'; prints each tier's counts,
+     the warm against the cold prefill charge and one resumed turn's
+     first-token logits against a cold prefill; (b) a full-width
+     qwen2-vl-2b request moved paged -> dense and dense -> paged through
+     the wire (size printed, leaves bitwise) finishes with the tokens it
+     decodes alone on the target kind; (c) at reduced size in f32 with the
+     kernels ("cuda"), a prefix hit and a resumed session equal cold
+     serving, paged and dense, and a temperature-0.7 migration equals the
+     unmigrated run;
+  7. ``python -m repro_torch.launch.serve --requests 4 --max-new 4``, then
+     with ``--sessions 2 --turns 2 --prefix-cache-mb 64 --migrate``, which
+     must print its ``sessions:`` line (phase 8 (d)). Phase 7 runs last.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record (launches: phases 4,
+5 and 8 together); the last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py                 # everything (one GPU)
     python3 chip_smoke.py --phases 1,2,3  # a subset, for debugging
@@ -1010,27 +1026,43 @@ def compare_prefill(auto_model, cuda_model, params, label):
           f"({min(walls['cuda']) * 1e3:.2f}-{max(walls['cuda']) * 1e3:.2f})")
 
 
-def phase_serve_full(records):
+def full_width_models():
+    """The edge-cloud pair at full width and depth in bf16, random weights
+    from the tier's seed (0 edge, 1 cloud): tier -> (model under attn_impl
+    "cuda", its parameters)."""
     import torch
 
     from repro_torch.config import ServingConfig, get_topology
     from repro_torch.models import build_model
-    from repro_torch.serving.engine import TierEngine
     from repro_torch.serving.tiers import build_cluster_engines
 
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sv = ServingConfig(max_batch=4, max_seq=512, paged=True, kv_page_size=64,
                        fused_steps=8)
-    topo = get_topology("edge-cloud")
-    engines = build_cluster_engines(topo, sv, dtype="bfloat16",
-                                    device="cuda", full_width=True)
+    engines = build_cluster_engines(get_topology("edge-cloud"), sv,
+                                    dtype="bfloat16", device="cuda",
+                                    full_width=True)
     torch.cuda.synchronize()
     print(f"  built full-width engines in {time.perf_counter() - t0:.1f}s")
+    return engines, {name: (build_model(e.cfg, attn_impl="cuda",
+                                        device="cuda"), e.params)
+                     for name, e in engines.items()}
+
+
+def phase_serve_full(records, engines, built):
+    import torch
+
+    from repro_torch.config import ServingConfig, get_topology
+    from repro_torch.serving.engine import TierEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    sv = ServingConfig(max_batch=4, max_seq=512, paged=True, kv_page_size=64,
+                       fused_steps=8)
+    topo = get_topology("edge-cloud")
     # phase 4: prefill through the flash-attention kernel, same weights
     flash = {}
     for name, e in engines.items():
-        model = build_model(e.cfg, attn_impl="cuda", device="cuda")
+        model = built[name][0]
         compare_prefill(e.model, model, e.params, f"{name} ({e.cfg.name})")
         flash[name] = TierEngine(model, e.params, sv)
     counts = serve(flash, topo, 8, 16, "paged full width, attn cuda")
@@ -1096,22 +1128,352 @@ def phase_impl_parity():
               f"{sum(len(t) for t in toks['cuda'].values())} tokens")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: warm serving and migration
+# ---------------------------------------------------------------------------
+
+
+def _watch_warm(eng, log):
+    """Record each warm admission of ``eng``: its kind, the cache positions
+    it reused, the prefill it was charged against a cold prefill of the
+    same prompt, the pool's shared pages just after it, and (for a resumed
+    turn) its prompt and first-token logits."""
+    from repro_torch.kernels import ops
+
+    admit, start, step = eng._admit_warm, eng._start_seq, eng.step
+    eng._launches = {}
+
+    def stepped():
+        before = ops.launches()
+        out = step()
+        for name, n in ops.launches().items():
+            eng._launches[name] = eng._launches.get(name, 0) + n - before[name]
+        return out
+
+    def admit_warm(job, slot, plan):
+        pf0 = eng.prefill_tokens
+        admit(job, slot, plan)
+        cold = len(job["tokens"]) + eng._prompt_prefix(job["extras"])
+        log.append({"kind": plan["kind"], "cached": int(plan["cached"]),
+                    "charged": eng.prefill_tokens - pf0, "cold": cold,
+                    "shared": eng.kv_gauges()["pages_shared"]})
+
+    def start_seq(job, slot, prompt_len, first_logits, prefill_count=None,
+                  warm=None):
+        if warm is not None and warm[0] == "resume":
+            eng._last_warm = (job, first_logits.copy())
+        start(job, slot, prompt_len, first_logits,
+              prefill_count=prefill_count, warm=warm)
+
+    eng._admit_warm, eng._start_seq, eng.step = admit_warm, start_seq, stepped
+
+
+def _store_refs_hold(eng, label):
+    """A drained paged engine's page references are the prefix store's
+    holdings, page by page, and its free list agrees."""
+    refs = {}
+    for e in eng.prefix_store.lru._d.values():
+        for p in e.data["pages"]:
+            refs[p] = refs.get(p, 0) + 1
+    eng.pool.check()
+    held = {p: int(eng.pool.refcnt[p]) for p in range(1, eng.pool.num_pages + 1)
+            if eng.pool.refcnt[p]}
+    if held != refs:
+        fail(f"{label}: pool references {held} != the store's {refs}")
+    return len(refs)
+
+
+def warm_full_width(records, built):
+    """Phase 8 (a): full width, bf16, paged, prefill attention "cuda":
+    3 sessions of 3 turns with an image each, then 4 text requests that
+    share a long prefix, through ClusterServer(sessions=True)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import ServingConfig, get_topology
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import TierEngine
+    from repro_torch.serving.tiers import ClusterServer
+
+    # a cloud slot's rows at 512 positions: 28 x 2 x 4 x 128 x 2 B x 512 =
+    # 29.4 MB; the budgets hold every park and every stored prefix
+    sv = ServingConfig(max_batch=4, max_seq=512, paged=True, kv_page_size=64,
+                       fused_steps=8, prefix_cache_mb=8192.0,
+                       session_cache_mb=2048.0)
+    topo = get_topology("edge-cloud")
+    engines, logs = {}, {}
+    for name, (model, params) in built.items():
+        engines[name] = TierEngine(model, params, sv)
+        logs[name] = []
+        _watch_warm(engines[name], logs[name])
+    server = ClusterServer(engines, topology=topo, sessions=True)
+    imgs = [img for _, img in launcher_mix(3, seed=5)]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for turn in range(3):
+        for s in range(3):
+            text = ("you are a Helpful assistant; answer with Care. "
+                    if turn == 0 else "") + (
+                f"turn {turn}: tell me more about the Scene in view {s}. ")
+            server.submit_turn(f"chat-{s}", text, image=imgs[s], max_new=8,
+                               slo_s=60.0)
+        server.run(timeout_s=300.0)
+    system = ("Context: the assistant answers questions about a city's "
+              "transit Network, its Lines, Stations and Timetables. " * 3)
+    # a pinned (simple) text score keeps the four on one tier: the first
+    # deposits the shared prefix, the other three hit it
+    easy = {"text": 0.05}
+    server.submit(system + "question 0: when does the first Train leave? ",
+                  max_new=8, slo_s=60.0, complexity=easy)
+    server.run(timeout_s=300.0)
+    for i in range(1, 4):
+        server.submit(system + f"question {i}: which Line serves Station "
+                      f"{i * 7}? ", max_new=8, slo_s=60.0, complexity=easy)
+    results = server.run(timeout_s=300.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    server.close()
+    if len(results) != 13 or any(r.failed for r in results):
+        fail(f"warm serve: {len(results)}/13 resolved, failed "
+             f"{[r.rid for r in results if r.failed]}")
+    for r in results:
+        vocab = engines[r.tier].cfg.vocab_size
+        if not r.tokens or not all(0 <= t < vocab for t in r.tokens):
+            fail(f"warm serve: rid {r.rid} tokens out of range: {r.tokens}")
+    allw = [w for log in logs.values() for w in log]
+    resumed = [w for w in allw if w["kind"] == "resume"]
+    hits = [w for w in allw if w["kind"] == "prefix"]
+    if not resumed:
+        fail("warm serve: no turn resumed its parked session")
+    if not any(w["shared"] > 0 for w in hits):
+        fail(f"warm serve: no copy-free prefix hit (hits {hits})")
+    for w in allw:
+        if w["charged"] != w["cold"] - w["cached"] or w["charged"] <= 0:
+            fail(f"warm serve: a warm admission charged {w['charged']} "
+                 f"prefill tokens, not its suffix ({w})")
+    for name, eng in engines.items():
+        pages = _store_refs_hold(eng, f"warm serve {name}")
+        log = logs[name]
+        charged = sum(w["charged"] for w in log)
+        cold = sum(w["cold"] for w in log)
+        print(f"  warm {name} ({eng.cfg.name}): {eng.resumed_sessions} "
+              f"resumed turns, {eng.prefix_hits} prefix hits "
+              f"(pages_shared after each: "
+              f"{[w['shared'] for w in log if w['kind'] == 'prefix']}), "
+              f"{eng.parks} parks; warm admissions charged {charged} "
+              f"prefill tokens against {cold} for cold prefills of the same "
+              f"prompts; decode_attention_paged launches "
+              f"{eng._launches.get('decode_attention_paged', 0)}; drained "
+              f"pool holds {pages} pages, all the prefix store's")
+        sid = next(iter(eng.sessions.ids()), None)
+        if sid is not None:  # one parked full-width slot on the wire
+            payload = eng.sessions.peek(sid).data
+            t0 = time.perf_counter()
+            wire = payload.to_bytes()
+            print(f"    parked slot {sid} on {name}: wire "
+                  f"{len(wire) / 1e6:.3f} MB, to_bytes "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    print(f"  warm serve: 13 requests in {wall:.3f}s | launches {counts}")
+    # one resumed turn's first-token logits against a cold prefill of the
+    # same full prompt (bf16, other attention path: reported, not held)
+    eng = next(e for e in engines.values() if hasattr(e, "_last_warm"))
+    job, warm_logits = eng._last_warm
+    batch = eng._device_batch(np.asarray(job["tokens"])[None], {
+        k: np.asarray(v)[None] for k, v in job["extras"].items()})
+    cold_logits, _ = eng.model.prefill(eng.params, batch, 512)
+    cold_logits = cold_logits.float().cpu().numpy()[0]
+    print(f"  resumed turn ({eng.cfg.name}, {len(job['tokens'])} tokens + "
+          f"{eng._prompt_prefix(job['extras'])} patches): first-token "
+          f"logits max |warm - cold| "
+          f"{float(np.abs(warm_logits - cold_logits).max()):.4g} of max "
+          f"|logit| {float(np.abs(cold_logits).max()):.4g}, argmax "
+          f"{'agrees' if warm_logits.argmax() == cold_logits.argmax() else 'differs'}")
+    for name in ("flash_attention", "decode_attention_paged"):
+        if counts[name] <= 0:
+            fail(f"warm serve never launched {name}")
+    for name, n in counts.items():
+        records[name]["launches"] = records[name].get("launches", 0) + n
+
+
+def _alone(eng, prompt, max_new, steps=None):
+    """Serve one request alone; with ``steps`` stop after that many fused
+    blocks and return the engine instead of the tokens."""
+    eng.submit(0, prompt["tokens"], max_new=max_new, extras=prompt["extras"])
+    if steps is not None:
+        for _ in range(steps):
+            eng.step()
+        return eng
+    return {s.rid: list(s.generated) for s in eng.run_until_drained()}[0]
+
+
+def _bits(t):
+    """A tensor's bit pattern as integers (NaN-safe bitwise comparison)."""
+    import torch
+
+    return t.contiguous().view({2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def migrate_full_width(records, built):
+    """Phase 8 (b): full width, bf16, two qwen2-vl-2b engines with the same
+    max_batch, one paged and one dense: a request decoded two fused blocks
+    on one, moved through the wire into the other, finishes with the
+    tokens it decodes alone on the target kind, both directions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import ServingConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import SlotPayload, TierEngine
+
+    model, params = built["edge"]
+    cfg = model.cfg
+    rng = np.random.default_rng(11)
+    prompt = {"tokens": rng.integers(4, cfg.vocab_size, 40).astype(np.int32),
+              "extras": {"patches": rng.standard_normal(
+                  (cfg.num_patches, cfg.frontend_dim)).astype(np.float32)}}
+    svs = {"paged": ServingConfig(max_batch=4, max_seq=512, paged=True,
+                                  kv_page_size=64, fused_steps=8),
+           "dense": ServingConfig(max_batch=4, max_seq=512, fused_steps=8)}
+    ops.reset_launches()
+    alone = {kind: _alone(TierEngine(model, params, sv), prompt, 40)
+             for kind, sv in svs.items()}
+    for src, dst in (("paged", "dense"), ("dense", "paged")):
+        donor = _alone(TierEngine(model, params, svs[src]), prompt, 40,
+                       steps=2)
+        payload = donor.extract_slot(0, remove=True)
+        t0 = time.perf_counter()
+        wire = payload.to_bytes()
+        t_out = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = SlotPayload.from_bytes(wire)
+        t_in = time.perf_counter() - t0
+        for name, leaf in payload.leaves.items():
+            if not torch.equal(_bits(back.leaves[name]), _bits(leaf.cpu())):
+                fail(f"migrate {src}->{dst}: leaf {name} changed on the wire")
+        target = TierEngine(model, params, svs[dst])
+        target.inject_slot(back)
+        got = {s.rid: list(s.generated)
+               for s in target.run_until_drained()}[0]
+        if target.prefill_tokens != 0:
+            fail(f"migrate {src}->{dst}: the target prefilled")
+        if got != alone[dst]:
+            fail(f"migrate {src}->{dst}: {got} != alone on {dst} "
+                 f"{alone[dst]}")
+        print(f"  migrate {cfg.name} bf16 {src} -> {dst} after "
+              f"{len(payload.seq.generated)} tokens: wire "
+              f"{len(wire) / 1e6:.3f} MB (to_bytes {t_out * 1e3:.1f} ms, "
+              f"from_bytes {t_in * 1e3:.1f} ms), leaves bitwise, "
+              f"{len(got)} tokens equal to the request alone on {dst}")
+    counts = ops.launches()
+    print(f"  migration runs (two alone, two moved): launches {counts}")
+    for name in ("decode_attention", "decode_attention_paged"):
+        if counts[name] <= 0:
+            fail(f"migration never launched {name}")
+    for name, n in counts.items():
+        records[name]["launches"] = records[name].get("launches", 0) + n
+
+
+def warm_reduced_parity():
+    """Phase 8 (c): reduced f32 on the card, attn_impl and decode_impl
+    "cuda": a prefix hit and a resumed session decode the tokens of cold
+    serving, paged and dense; a migration at temperature 0.7 continues
+    with the tokens of the unmigrated run."""
+    import numpy as np
+
+    from repro_torch.config import ServingConfig
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import SlotPayload, TierEngine
+
+    cfg = reduced_config("qwen2-vl-2b").replace(dtype="float32")
+    model = build_model(cfg, attn_impl="cuda", device="cuda")
+    params = model.init(0)
+    rng = np.random.default_rng(0)
+    base = rng.integers(4, 200, 40).astype(np.int32)
+    ext = rng.integers(4, 200, 10).astype(np.int32)
+    extras = {"patches": rng.standard_normal(
+        (cfg.num_patches, cfg.frontend_dim)).astype(np.float32)}
+
+    def engine(paged, temp=0.0, **kw):
+        return TierEngine(model, params, ServingConfig(
+            max_batch=2, max_seq=128, paged=paged, kv_page_size=16,
+            decode_impl="cuda", **kw), eos_id=-1, sample_temp=temp)
+
+    def run(eng, rid, toks, max_new, session=None):
+        eng.submit(rid, toks, max_new=max_new, extras=dict(extras),
+                   session=session)
+        return {s.rid: list(s.generated) for s in eng.run_until_drained()}[rid]
+
+    for paged in (False, True):
+        full = np.concatenate([base, ext])
+        cold = run(engine(paged), 0, full, 8)
+        warm = engine(paged, prefix_cache_mb=64.0)
+        run(warm, 0, base, 8)
+        if run(warm, 1, full, 8) != cold or warm.prefix_hits != 1:
+            fail(f"reduced paged={paged}: prefix hit != cold")
+        eng = engine(paged)
+        gen = run(eng, 0, base, 6, session="s")
+        hist = np.concatenate([base, np.asarray(gen, np.int32), ext])
+        got = run(eng, 1, hist, 6, session="s")
+        if got != run(engine(paged), 0, hist, 6) or eng.resumed_sessions != 1:
+            fail(f"reduced paged={paged}: resumed session != cold")
+        ref = engine(paged, temp=0.7)
+        want = run(ref, 0, full, 24)
+        donor = engine(paged, temp=0.7)
+        donor.submit(0, full, max_new=24, extras=dict(extras))
+        donor.step()
+        wire = donor.extract_slot(0).to_bytes()
+        target = engine(not paged, temp=0.7)
+        target.inject_slot(SlotPayload.from_bytes(wire))
+        got = {s.rid: list(s.generated)
+               for s in target.run_until_drained()}[0]
+        if got != want:
+            fail(f"reduced paged={paged}: temperature-0.7 migration {got} "
+                 f"!= unmigrated {want}")
+        print(f"  reduced f32 cuda paged={paged}: prefix hit and resumed "
+              f"session equal cold; a temp-0.7 migration to "
+              f"{'dense' if paged else 'paged'} equals the unmigrated "
+              f"{len(want)} tokens")
+
+
+def phase_warm(records, built):
+    warm_full_width(records, built)
+    migrate_full_width(records, built)
+    warm_reduced_parity()
+
+
 def phase_launcher():
+    """The launcher's default run, then its warm-serving and migration
+    flags (phase 8 (d)), which must print the ``sessions:`` line."""
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                           "--requests", "4", "--max-new", "4"],
-                          cwd=ROOT, env=env, capture_output=True, text=True,
-                          timeout=600)
-    for line in proc.stdout.splitlines()[:6]:
-        print(f"  | {line}")
-    if proc.returncode != 0:
-        fail(f"launcher exit {proc.returncode}:\n{proc.stderr[-3000:]}")
+    for flags, want in (([], "served "),
+                        (["--sessions", "2", "--turns", "2",
+                          "--prefix-cache-mb", "64", "--migrate"],
+                         "sessions: ")):
+        proc = subprocess.run([sys.executable, "-m",
+                               "repro_torch.launch.serve", "--requests", "4",
+                               "--max-new", "4", *flags],
+                              cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        lines = proc.stdout.splitlines()
+        print(f"  $ repro_torch.launch.serve --requests 4 --max-new 4 "
+              f"{' '.join(flags)}")
+        for line in lines[:8]:
+            print(f"  | {line}")
+        if proc.returncode != 0:
+            fail(f"launcher {flags} exit {proc.returncode}:\n"
+                 f"{proc.stderr[-3000:]}")
+        if not any(line.startswith(want) for line in lines):
+            fail(f"launcher {flags}: no {want.strip()!r} line")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1138,15 +1500,26 @@ def main() -> None:
         check_decode_dense(records)
         check_decode_paged(records)
         check_flash(records)
+    if phases & {4, 5, 8} and 3 not in phases:
+        fail("phases 4, 5 and 8 record launches into phase 3's kernel "
+             "records")
+    built = None
+    if phases & {4, 5, 8}:
+        engines, built = full_width_models()
     if 4 in phases or 5 in phases:
-        if 3 not in phases:
-            fail("phases 4-5 record launches into phase 3's kernel records")
         print("phase 4-5: full-width prefill and serving (paged with the "
               "flash-attention kernel, then dense)")
-        phase_serve_full(records)
+        phase_serve_full(records, engines, built)
+    if built is not None:
+        del engines
     if 6 in phases:
         print("phase 6: reduced f32, cuda vs torch prefill and decode")
         phase_impl_parity()
+    if 8 in phases:
+        print("phase 8: warm serving and migration (full-width sessions and "
+              "prefix hits, paged <-> dense migration, reduced parity)")
+        phase_warm(records, built)
+    del built
     if 7 in phases:
         print("phase 7: launcher")
         phase_launcher()

@@ -15,11 +15,15 @@ enable the tier-health circuit breaker, retry backoff and deadline-aware
 load shedding. ``--byzantine`` adds message-level wire faults (frame
 corruption, drops, dups, reorders — all detected by checksums and the
 exactly-once delivery ledger) and ``--audit`` runs the runtime invariant
-auditor at completion.
+auditor at completion. ``--sessions N --turns T`` serves a multi-turn chat
+workload whose later turns resume their parked KV, ``--prefix-cache-mb``
+turns on the prefix store, and ``--migrate`` (with ``--hedge-in-service``
+or ``--migrate-threshold``) moves in-flight slots between tiers.
 
 PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --bandwidth 300e6
 PYTHONPATH=src python -m repro_torch.launch.serve --topology edge-regional-cloud
 PYTHONPATH=src python -m repro_torch.launch.serve --arrival-rate 4 --hedge-after 1
+PYTHONPATH=src python -m repro_torch.launch.serve --sessions 2 --turns 2 --prefix-cache-mb 64 --migrate
 """
 from __future__ import annotations
 
@@ -53,14 +57,6 @@ def parse_replicas(specs) -> dict:
 
 # flags whose engine paths this port does not have yet -> their ROADMAP item
 _UNPORTED = {
-    "migrate": ("--migrate", "item 8 (warm paths and migration)"),
-    "hedge_in_service": ("--hedge-in-service",
-                         "item 8 (warm paths and migration)"),
-    "migrate_threshold": ("--migrate-threshold",
-                          "item 8 (warm paths and migration)"),
-    "sessions": ("--sessions", "item 8 (warm paths and migration)"),
-    "prefix_cache_mb": ("--prefix-cache-mb",
-                        "item 8 (warm paths and migration)"),
     "speculate": ("--speculate", "item 9 (speculative decoding)"),
 }
 
@@ -191,6 +187,13 @@ def main(argv=None) -> None:
                          "finished turn's KV parks on its tier and the "
                          "next turn resumes it, prefilling only the new "
                          "tokens")
+    ap.add_argument("--turns", type=int, default=3,
+                    help="turns per session (with --sessions)")
+    ap.add_argument("--session-move-threshold", type=int, default=0,
+                    help="ship a parked session to the scheduler's "
+                         "preferred compatible tier when the parked tier "
+                         "is this much deeper in occupancy (0 = always "
+                         "sticky)")
     ap.add_argument("--max-seq", type=int, default=128,
                     help="engine cache capacity (grow it for long "
                          "multi-turn histories)")
@@ -277,24 +280,42 @@ def main(argv=None) -> None:
         engines = build_engines(topo, sv, device=args.device)
     server = ClusterServer(engines, topology=topo,
                            hedge_after_s=args.hedge_after,
-                           fail_rate=args.fail_rate,
+                           fail_rate=args.fail_rate, migrate=args.migrate,
+                           migrate_threshold=args.migrate_threshold,
+                           hedge_in_service=args.hedge_in_service,
+                           sessions=args.sessions > 0,
+                           session_move_threshold=args.session_move_threshold,
                            fault_plan=plan, resilience=resilience,
                            audit=args.audit)
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    delay = 0.0
-    for i in range(args.requests):
-        u = rng.beta(1.6, 1.6)
-        img = make_image(rng, u, 64, 64)
-        text = (f"Request {i}: describe the Scene {i * 3}. "
-                + "and then explain why it matters. "
-                * rng.integers(1, 12))
-        if args.arrival_rate > 0:
-            delay += rng.exponential(1.0 / args.arrival_rate)
-        server.submit(text, image=img, max_new=args.max_new,
-                      slo_s=args.slo, delay_s=delay)
-    results = server.run()
+    if args.sessions > 0:
+        system = "you are a Helpful assistant; answer with Care. "
+        for turn in range(args.turns):
+            delay = 0.0
+            for s in range(args.sessions):
+                if args.arrival_rate > 0:
+                    delay += rng.exponential(1.0 / args.arrival_rate)
+                text = (system if turn == 0 else "") + (
+                    f"turn {turn}: tell me more about Topic {s}. ")
+                server.submit_turn(f"chat-{s}", text, max_new=args.max_new,
+                                   slo_s=args.slo, delay_s=delay)
+            server.run()  # turns of one session are sequential
+        results = server.results
+    else:
+        delay = 0.0
+        for i in range(args.requests):
+            u = rng.beta(1.6, 1.6)
+            img = make_image(rng, u, 64, 64)
+            text = (f"Request {i}: describe the Scene {i * 3}. "
+                    + "and then explain why it matters. "
+                    * rng.integers(1, 12))
+            if args.arrival_rate > 0:
+                delay += rng.exponential(1.0 / args.arrival_rate)
+            server.submit(text, image=img, max_new=args.max_new,
+                          slo_s=args.slo, delay_s=delay)
+        results = server.run()
     wall = time.perf_counter() - t0
     per_tier = {}
     for r in results:
@@ -326,6 +347,18 @@ def main(argv=None) -> None:
               f"quarantines={health.quarantine_count if health else 0} "
               f"rescued-sessions={server.runtime.rescued_sessions} | "
               f"health {states}")
+    if server.runtime.migrate:
+        mig = sum(r.migrated for r in results)
+        mb = sum(r.migration_bytes for r in results)
+        print(f"migrated={mig} requests ({server.runtime.migrations} slot "
+              f"moves, {mb / 1e6:.2f} MB of cache rows shipped)")
+    if args.sessions > 0 or args.prefix_cache_mb > 0:
+        resumed = sum(r.warm == "resume" for r in results)
+        hits = sum(r.warm == "prefix" for r in results)
+        saved = sum(r.warm_tokens for r in results)
+        print(f"sessions: {resumed} resumed turns, {hits} prefix hits, "
+              f"{saved:.0f} cached tokens never re-prefilled, "
+              f"{server.runtime.session_moves} parked-state moves")
     ws = server.runtime.wire_stats
     if args.byzantine or args.audit or ws:
         print(f"wire: corruptions {ws.get('corrupt_detected', 0)}/"

@@ -10,8 +10,10 @@ shapes: ``blocks/{k,v}`` ``(L, B, T, K, hd)``, ``pos`` ``(B, T)``,
 KV leaves into ``(L, P, page, K, hd)`` pools.
 
 Unlike the JAX package, decode updates the cache IN PLACE: ``decode_step``
-writes ``pos`` / ``index`` and each layer's new K/V row into the tensors it
-was given (before attention reads them) and returns the same dict.
+(one token) and ``decode_chunk`` (S tokens against the cache, the suffix
+prefill of a warm admission) write ``pos`` / ``index`` and each layer's new
+K/V rows into the tensors they were given (before attention reads them) and
+return the same dict.
 """
 from __future__ import annotations
 
@@ -122,6 +124,14 @@ class DecoderLM(nn.Module):
     # cache
     # ------------------------------------------------------------------
 
+    def cache_axes(self, batch: int, capacity: int) -> dict:
+        """Logical axes of each decode-cache leaf (the JAX package's
+        ``cache_axes``): the engine slices a slot's rows along "batch" and
+        a stored prefix along "seq"."""
+        kv = ("layers", "batch", "seq", "kv_heads", None)
+        return {"blocks": {"k": kv, "v": kv}, "pos": ("batch", "seq"),
+                "index": ("batch",)}
+
     def init_cache(self, batch: int, capacity: int) -> dict:
         cfg = self.cfg
         shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads,
@@ -188,6 +198,27 @@ class DecoderLM(nn.Module):
             out = attn_mod.decode_attention(q, kr, vr, pos_q[:, 0], pr,
                                             window=window,
                                             impl=self.decode_impl)
+        elif mode == "chunk":
+            # S tokens against the cache (suffix prefill): their KV rows land
+            # at consecutive indices after each row's write index (linear
+            # placement), and attention masks by absolute position, so each
+            # new token sees the cached prefix and its causal predecessors
+            # in the chunk. The self-attention kernel ("cuda") and its plain
+            # version ("torch") take no positions: the dispatcher's
+            # position-aware choice stands in for them, as JAX's ringchunk
+            # branch does for "pallas".
+            kc, vc = lcache["k"], lcache["v"]
+            bi = torch.arange(b, device=x.device)[:, None]
+            widx = idx.long()[:, None] + torch.arange(s, device=x.device)
+            kc[layer, bi, widx] = k.to(kc.dtype)
+            vc[layer, bi, widx] = v.to(vc.dtype)
+            kr, vr, pr = kc[layer], vc[layer], pos_kv
+            if ctx is not None and ctx < kr.shape[1]:
+                kr, vr, pr = kr[:, :ctx], vr[:, :ctx], pos_kv[:, :ctx]
+            impl = (self.attn_impl if self.attn_impl in ("dense", "flash")
+                    else "auto")
+            out = attn_mod.attention(q, kr, vr, pos_q, pr, causal=True,
+                                     window=window, impl=impl)
         else:
             out = attn_mod.attention(q, k, v, pos_q, pos_q, causal=True,
                                      window=window, impl=self.attn_impl)
@@ -231,7 +262,7 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         x = embed(batch["tokens"], params["embed"]).to(self.dtype)
         prefix = 0
-        if (cfg.frontend == "vision_stub" and mode != "decode"
+        if (cfg.frontend == "vision_stub" and mode not in ("decode", "chunk")
                 and "patches" in batch):
             px = torch.matmul(batch["patches"].to(self.dtype),
                               params["proj_in"])
@@ -246,6 +277,8 @@ class DecoderLM(nn.Module):
         b, s, _ = x.shape
         if mode == "decode":
             positions = batch["positions"][:, None]
+        elif mode == "chunk":
+            positions = batch["positions"]  # (B, S) absolute
         else:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=x.device)[None].expand(b, s)
@@ -327,4 +360,44 @@ class DecoderLM(nn.Module):
         cap = cache["pos"].shape[1]
         cache["index"] = (idx + 1) % cap
         hidden, _, _ = self.forward(params, batch, "decode", cache, ctx, idx)
+        return self._logits(params, hidden)[:, 0], cache
+
+    def decode_chunk(self, params, cache, batch, ctx=None,
+                     all_logits: bool = False):
+        """S tokens against the cache: the suffix prefill of a prefix-store
+        hit or a resumed session. batch: tokens (B, S), absolute positions
+        (B, S), optional lengths (B,) of right-padded rows. Returns
+        (logits of each row's last real token (B, V), cache), or with
+        ``all_logits`` every position's logits (B, S, V); the cache is
+        updated in place.
+
+        The S rows land linearly after each row's write index, which must
+        leave them inside the capacity (the engine sizes its padded suffix
+        so); ``index`` advances by S modulo the capacity. A padded row's
+        tail entries carry positions past its true end: the CALLER re-masks
+        them to -1, as after a bucketed prefill. Dense (not paged) caches
+        only."""
+        cfg = self.cfg
+        assert cfg.family in ("dense", "vlm", "moe"), (
+            "decode_chunk needs positionally addressable KV; "
+            f"{cfg.family} carries point-in-time recurrent state")
+        if "pages" in cache:
+            raise ValueError("decode_chunk takes a dense cache, not a paged "
+                             "pool")
+        b, s = batch["tokens"].shape
+        idx = cache["index"].clone()  # (B,) this chunk's write start
+        bi = torch.arange(b, device=idx.device)[:, None]
+        widx = idx.long()[:, None] + torch.arange(s, device=idx.device)
+        # written before the forward: the new tokens must see themselves
+        cache["pos"][bi, widx] = batch["positions"].to(torch.int32)
+        cap = cache["pos"].shape[1]
+        cache["index"] = ((idx + s) % cap).to(torch.int32)
+        hidden, _, _ = self.forward(params, batch, "chunk", cache, ctx, idx)
+        if all_logits:
+            return self._logits(params, hidden), cache
+        if "lengths" in batch:
+            last = batch["lengths"].long() - 1
+            hidden = hidden[bi[:, 0], last][:, None]
+        else:
+            hidden = hidden[:, -1:]
         return self._logits(params, hidden)[:, 0], cache

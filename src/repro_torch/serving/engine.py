@@ -1,5 +1,6 @@
 """Live continuous-batching serving engine (runs real models). Counterpart
-of ``repro/serving/engine.py::TierEngine``, cold serving only.
+of ``repro/serving/engine.py::TierEngine`` for the ``dense`` and ``vlm``
+families.
 
 One engine per tier. Fixed-slot design: ``max_batch`` decode slots share a
 KV cache (per-slot write indices); finished slots are freed and refilled
@@ -17,23 +18,35 @@ table per slot (``ServingConfig(paged=True)``, the launcher default).
 * **Bucketed prefill**: waiting prompts are right-padded to power-of-two
   length buckets; all same-bucket requests prefill in ONE batched call and
   scatter into their slots (through the page tables on a paged engine).
+* **Warm admission**: a prompt extending a parked session
+  (``submit(session=...)``) or a stored prefix (``prefix_cache_mb > 0``)
+  reuses the cached rows and prefills only its suffix, in one
+  ``decode_chunk`` pass. On a paged engine a prefix-store entry is a list of
+  page ids (increfs, no copy), and a hit maps the full pages behind the
+  reused frontier copy-on-write into the new slot's table.
+* **Migration**: ``extract_slot`` packs one request's cache rows, its
+  ``SeqState`` and its sampling key into a :class:`SlotPayload`, whose
+  versioned wire format (``to_bytes``/``from_bytes``) is byte-compatible
+  with the JAX package's; ``inject_slot`` resumes it in a free slot of a
+  compatible engine, paged or dense, without a prefill.
 
-``ServingConfig(fused_steps=1)`` keeps the per-token path (host-side numpy
-sampling, one sync per token, one prefill per request) for parity testing.
+``ServingConfig(fused_steps=1)`` keeps the per-token path (one sync per
+token, one prefill per request) for parity testing. Speculative decoding
+(``spec_*``) is not in this port yet and raises, naming its ROADMAP item.
 
-Not in this port yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: cross-tier migration (``extract_slot`` / ``inject_slot``),
-session park/resume/adopt, warm admission from the prefix store
-(``prefix_cache_mb > 0``) and speculative decoding (``spec_*``).
-
-At temperature > 0 the fused path samples from one ``torch.Generator`` per
-engine; it does not reproduce the JAX package's per-slot key stream.
+Sampling at temperature > 0 draws each slot's token from that slot's key
+alone: Gumbel-max with noise from a counter-based hash of (key, rid,
+absolute position, vocab index). The draw needs no state that advances, so
+the fused and per-token paths, and a request before and after a
+migration, draw the same tokens. It is not the JAX package's threefry
+stream.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import json
+import re
 import struct
 import time
 import zlib
@@ -45,7 +58,9 @@ import torch
 
 from repro_torch.config import ModelConfig, ServingConfig
 from repro_torch.serving.paged import PagePool, pages_needed
-from repro_torch.serving.prefix import PrefixStore, SessionStore
+from repro_torch.serving.prefix import (ParkedSession, PrefixStore,
+                                        SessionStore, extension_suffix,
+                                        extras_fingerprint, prefix_buckets)
 
 
 def _next_bucket(n: int, lo: int = 16) -> int:
@@ -83,6 +98,11 @@ MIGRATION_WIRE_VERSION = 2
 _WIRE_MAGIC = b"MOAKV"
 _WIRE_HDR = struct.Struct("<HII")  # (version, header len, header crc32)
 
+#: numpy's (and the JAX package's) spelling of each cache dtype: the wire
+#: tags and the engine's row specs use it, never ``str(torch.dtype)``
+_DTYPE_TAGS = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+               torch.float16: "float16", torch.int32: "int32"}
+
 
 class MigrationError(RuntimeError):
     """A slot payload cannot be extracted or injected: unknown wire version,
@@ -91,30 +111,50 @@ class MigrationError(RuntimeError):
     target engine untouched (callers fall back to a fresh prefill)."""
 
 
+def dtype_tag(x) -> str:
+    """The numpy spelling of a leaf's dtype (a tensor or an array)."""
+    if isinstance(x, torch.Tensor):
+        return _DTYPE_TAGS.get(x.dtype) or str(x.dtype)
+    return str(x.dtype)
+
+
+def _leaf_bytes(x) -> bytes:
+    """A leaf's raw bytes in C order; bf16 travels as its 2-byte pattern."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().contiguous().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.numpy().tobytes()
+    return np.ascontiguousarray(x).tobytes()
+
+
 def _np_dtype(name: str) -> np.dtype:
-    """Resolve a dtype tag, including the ml_dtypes extras jax uses. An
-    unknown tag (corrupt header, sender with newer dtypes) raises
-    MigrationError so callers keep their re-prefill fallback."""
+    """Resolve a numpy dtype tag. An unknown tag (corrupt header, sender
+    with newer dtypes) raises MigrationError so callers keep their
+    re-prefill fallback."""
     try:
         return np.dtype(name)
-    except TypeError:
-        try:
-            import ml_dtypes  # ships with jax
+    except TypeError as e:
+        raise MigrationError(
+            f"unknown dtype tag {name!r} in slot payload") from e
 
-            return np.dtype(getattr(ml_dtypes, name))
-        except (AttributeError, TypeError) as e:
-            raise MigrationError(
-                f"unknown dtype tag {name!r} in slot payload") from e
+
+def _as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """A row as a tensor of ``dtype`` on ``device``; may share memory with
+    ``x``."""
+    return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
 @dataclass
 class SlotPayload:
     """One request's migratable state: its per-slot cache rows (every leaf
-    sliced along that leaf's logical batch axis — dense/vlm/moe KV, ssm
-    conv+state, hybrid ring/rglru leaves), its ``SeqState``, the absolute
-    next position, and the per-slot sampling key. ``to_bytes``/``from_bytes``
-    are the versioned, dtype/shape-tagged wire format the live backend
-    actually ships across tiers."""
+    sliced along that leaf's logical batch axis), its ``SeqState``, the
+    absolute next position, and the per-slot sampling key. ``to_bytes``/
+    ``from_bytes`` are the versioned, dtype/shape-tagged wire format the
+    live backend ships across tiers, byte for byte the JAX package's.
+
+    Extracted rows are tensors on the donor's device until ``to_bytes``;
+    parsed rows are CPU tensors (bf16 included: no ``ml_dtypes``)."""
 
     version: int
     model: str
@@ -122,8 +162,8 @@ class SlotPayload:
     max_seq: int
     seq: SeqState
     position: int
-    key: np.ndarray  # per-slot jax.random key data
-    leaves: Dict[str, np.ndarray]  # keystr(cache path) -> per-slot row
+    key: np.ndarray  # per-slot sampling key, uint32[2]
+    leaves: Dict[str, Any]  # keystr(cache path) -> per-slot row
     # prompt token ids (session park/resume needs to know exactly which
     # tokens the cache rows cover); absent on wires from older senders
     prompt_tokens: Optional[np.ndarray] = None
@@ -143,8 +183,7 @@ class SlotPayload:
         seq = self.seq
         names = sorted(self.leaves)
         key_bytes = np.ascontiguousarray(self.key).tobytes()
-        leaf_bytes = [np.ascontiguousarray(self.leaves[n]).tobytes()
-                      for n in names]
+        leaf_bytes = [_leaf_bytes(self.leaves[n]) for n in names]
         head = {
             "version": self.version,
             "model": self.model,
@@ -164,7 +203,7 @@ class SlotPayload:
             "key": {"dtype": str(self.key.dtype),
                     "shape": list(self.key.shape),
                     "crc": zlib.crc32(key_bytes)},
-            "leaves": [{"name": n, "dtype": str(self.leaves[n].dtype),
+            "leaves": [{"name": n, "dtype": dtype_tag(self.leaves[n]),
                         "shape": list(self.leaves[n].shape),
                         "crc": zlib.crc32(raw)}
                        for n, raw in zip(names, leaf_bytes)],
@@ -200,7 +239,8 @@ class SlotPayload:
 
         def pull(dtype_s: str, shape, crc) -> np.ndarray:
             nonlocal off
-            dt = _np_dtype(dtype_s)
+            # bf16 arrives as its bit pattern, read as int16
+            dt = _np_dtype("int16" if dtype_s == "bfloat16" else dtype_s)
             if any(int(d) < 0 for d in shape):
                 raise MigrationError(f"corrupt leaf shape {shape}")
             n = int(np.prod(shape, dtype=np.int64)) if shape else 1
@@ -214,6 +254,10 @@ class SlotPayload:
             off = end
             return arr
 
+        def leaf(d) -> torch.Tensor:
+            t = torch.from_numpy(pull(d["dtype"], d["shape"], d.get("crc")))
+            return t.view(torch.bfloat16) if d["dtype"] == "bfloat16" else t
+
         # any malformation beyond this point (bad json, missing header
         # fields, bogus shapes) is a corrupt wire, never a crash: callers
         # rely on MigrationError to fall back to a fresh prefill
@@ -222,8 +266,7 @@ class SlotPayload:
             off += hlen
             key = pull(head["key"]["dtype"], head["key"]["shape"],
                        head["key"].get("crc"))
-            leaves = {d["name"]: pull(d["dtype"], d["shape"], d.get("crc"))
-                      for d in head["leaves"]}
+            leaves = {d["name"]: leaf(d) for d in head["leaves"]}
             s = head["seq"]
             seq = SeqState(rid=s["rid"], prompt_len=s["prompt_len"],
                            generated=list(s["generated"]),
@@ -243,15 +286,48 @@ class SlotPayload:
                        _wire=bytes(wire))
         except MigrationError:
             raise
-        except (KeyError, ValueError, TypeError, OverflowError) as e:
+        except (KeyError, ValueError, TypeError, OverflowError,
+                RuntimeError) as e:
             raise MigrationError(f"corrupt slot payload: {e!r}") from e
 
 
-_WARM_ITEM = "ROADMAP queue 1, item 8 (warm paths and migration)"
 _SPEC_ITEM = "ROADMAP queue 1, item 9 (speculative decoding)"
 
-# cache leaves the paged engine moves into the shared physical pool
-_PAGED_LEAVES = ("k", "v")
+# bookkeeping leaves: per slot, never paged, never stored as prefix rows
+_BOOKKEEPING = ("['pos']", "['index']")
+
+
+def _named_leaves(tree: Dict[str, Any], prefix: str = ""):
+    """(keystr, leaf) pairs in the JAX package's flattening order (sorted
+    keys), named as ``jax.tree_util.keystr`` names them."""
+    for k in sorted(tree):
+        name = f"{prefix}['{k}']"
+        if isinstance(tree[k], dict):
+            yield from _named_leaves(tree[k], name)
+        else:
+            yield name, tree[k]
+
+
+def _path(name: str) -> List[str]:
+    return re.findall(r"\['([^']*)'\]", name)
+
+
+def _get(tree: Dict[str, Any], name: str):
+    for k in _path(name):
+        tree = tree[k]
+    return tree
+
+
+def _put(tree: Dict[str, Any], name: str, value) -> None:
+    *head, last = _path(name)
+    for k in head:
+        tree = tree.setdefault(k, {})
+    tree[last] = value
+
+
+def _at(bax: int, index) -> tuple:
+    """Index tuple selecting ``index`` along axis ``bax``."""
+    return (slice(None),) * bax + (index,)
 
 
 def _tree_map(fn: Callable, tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -259,13 +335,58 @@ def _tree_map(fn: Callable, tree: Dict[str, Any]) -> Dict[str, Any]:
             for k, v in tree.items()}
 
 
+# -- per-slot keyed sampling -------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 ``x`` in [0, 2^32), in halves so no
+    product leaves int64."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xorshift-multiply, two rounds)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def keyed_sample(logits: torch.Tensor, keys: torch.Tensor,
+                 rids: torch.Tensor, positions: torch.Tensor,
+                 temp: float) -> torch.Tensor:
+    """One token per row of ``logits`` (B, V) at temperature ``temp``:
+    Gumbel-max, the noise a hash of (the row's key (B, 2), its request id,
+    the absolute position of the token whose logits these are, the vocab
+    index). Integer arithmetic in int64, so the noise is the same on every
+    device. Returns (B,) int64."""
+    dev = logits.device
+    keys = keys.to(device=dev, dtype=torch.int64)
+    row = _mix32(positions.to(device=dev, dtype=torch.int64) & _M32)
+    row = _mix32(row ^ (rids.to(device=dev, dtype=torch.int64) & _M32))
+    row = _mix32(row ^ keys[:, 1])
+    row = _mix32(row ^ keys[:, 0])
+    vocab = _mix32(torch.arange(logits.shape[-1], device=dev,
+                                dtype=torch.int64) + 0x9E3779B9 & _M32)
+    h = _mix32(row[:, None] ^ vocab[None, :])
+    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(logits.float() / temp + gumbel, dim=-1)
+
+
+def _slot_keys(seed: int, n: int) -> np.ndarray:
+    """``n`` per-slot sampling keys, uint32[2] each (the shape and dtype of
+    the JAX package's ``jax.random`` key data)."""
+    return np.random.default_rng(seed).integers(
+        0, 1 << 32, size=(n, 2), dtype=np.uint32)
+
+
 class TierEngine:
     def __init__(self, model, params, serving: ServingConfig = ServingConfig(),
                  eos_id: int = 2, sample_temp: float = 0.0, seed: int = 0):
-        if serving.prefix_cache_mb > 0:
-            raise NotImplementedError(
-                f"warm admission from the prefix store (prefix_cache_mb > 0) "
-                f"is not ported yet: {_WARM_ITEM}")
         # shallow copy: the engine sets per-engine decode flags below and
         # must not leak them into a model object shared with other engines
         model = copy.copy(model)
@@ -276,7 +397,6 @@ class TierEngine:
         self.serving = serving
         self.eos_id = eos_id
         self.temp = sample_temp
-        self.rng = np.random.default_rng(seed)
         self.fused_steps = max(1, serving.fused_steps)
         if serving.decode_impl != "auto":
             model.decode_impl = serving.decode_impl
@@ -299,31 +419,56 @@ class TierEngine:
         self.decode_tokens = 0
         self.prefill_tokens = 0
         self.encode_tokens = 0
-        # warm-path and speculation counters: stay 0 in this port
+        # prefix & session KV reuse counters: tokens whose prefill was
+        # SKIPPED because their cache rows came from the prefix store / a
+        # parked session (prefill_tokens counts only suffixes)
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
         self.resumed_sessions = 0
         self.resumed_tokens = 0
         self.parks = 0
+        # speculation counters: stay 0 in this port
         self.drafted_tokens = 0
         self.accepted_tokens = 0
         self.spec_rounds = 0
         # cluster-runtime hooks: admission + per-token streaming callbacks
+        # (rid, t) and (rid, token, t); warm admission (rid, kind, cached,
+        # suffix) with kind in {"prefix", "resume"}; session park (rid, sid)
         self.on_admit: Optional[Callable[[int, float], None]] = None
         self.on_token: Optional[Callable[[int, int, float], None]] = None
         self.on_warm: Optional[Callable[[int, str, int, int], None]] = None
         self.on_park: Optional[Callable[[int, str], None]] = None
-        # sampling stream of the fused path at temperature > 0
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed)
-        # the runtime reads these stores; both stay empty in this port
-        self.prefix_store = PrefixStore(0.0,
+        # per-slot sampling keys (host; they travel with a migrated slot)
+        self._keys = _slot_keys(seed, b)
+
+        # per-leaf (batch axis, seq axis or -1), by the JAX package's names
+        axes = dict(_named_leaves(model.cache_axes(b, t)))
+        self._axis_by_name = {
+            name: (ax.index("batch"), ax.index("seq") if "seq" in ax else -1)
+            for name, ax in axes.items()}
+        # dense per-slot row geometry (name -> (shape, dtype tag)) for
+        # payload validation, and the dense leaf specs warm admission builds
+        # its batch-1 cache from: paged and dense engines share both, so
+        # they speak the same migration wire format
+        self._dense_specs: Dict[str, tuple] = {}
+        self._row_specs: Dict[str, tuple] = {}
+        for name, leaf in _named_leaves(self.cache):
+            bax = self._axis_by_name[name][0]
+            shape = tuple(leaf.shape)
+            self._dense_specs[name] = (shape, leaf.dtype)
+            self._row_specs[name] = (shape[:bax] + shape[bax + 1:],
+                                     dtype_tag(leaf))
+        self.prefix_store = PrefixStore(serving.prefix_cache_mb * 1e6,
                                         min_prefix=serving.prefix_min_tokens)
         self.sessions = SessionStore(serving.session_cache_mb * 1e6)
+        self._slot_prompt: List[Optional[np.ndarray]] = [None] * b
+        self._slot_extras_fp: List[bytes] = [b""] * b
 
         # -- paged KV pool: the big KV leaves move into a shared physical
-        # pool ((L, P, page, K, hd) + an int32 page table per slot)
+        # pool ((L, P, page, K, hd) + an int32 page table per slot), with
+        # copy-free CoW prefix sharing
         self.pool: Optional[PagePool] = None
+        self._paged_names: tuple = ()
         self._pt: Optional[np.ndarray] = None  # host page tables (B, n_pt)
         self._slot_pages: List[List[int]] = [[] for _ in range(b)]
         self._page_pressure = False  # set when admission starved for pages
@@ -334,19 +479,29 @@ class TierEngine:
             self._n_pt = serving.pages_per_slot
             npages = serving.pool_pages + 1  # + pinned null page 0
             page_bytes = 0.0
-            blocks = self.cache["blocks"]
-            for name in _PAGED_LEAVES:
-                leaf = blocks[name]
-                n_layers, _, _, kh, hd = leaf.shape
-                page_bytes += (n_layers * kh * hd * leaf.element_size()) * ps
-                blocks[name] = torch.zeros((n_layers, npages, ps, kh, hd),
-                                           dtype=leaf.dtype,
-                                           device=self.device)
+            paged = []
+            for name, leaf in _named_leaves(self.cache):
+                if name in _BOOKKEEPING:
+                    continue
+                bax, sax = self._axis_by_name[name]
+                if sax == bax + 1 and leaf.shape[sax] == t:
+                    paged.append(name)
+                    page_bytes += (leaf.numel() // (leaf.shape[bax] * t)
+                                   * leaf.element_size()) * ps
+                    shape = (tuple(leaf.shape[:bax]) + (npages, ps)
+                             + tuple(leaf.shape[bax + 2:]))
+                    _put(self.cache, name, torch.zeros(
+                        shape, dtype=leaf.dtype, device=self.device))
+            self._paged_names = tuple(sorted(paged))
             self.cache["pages"] = torch.zeros((b, self._n_pt),
                                               dtype=torch.int32,
                                               device=self.device)
             self._pt = np.zeros((b, self._n_pt), np.int32)
             self.pool = PagePool(serving.pool_pages, ps, page_bytes=page_bytes)
+            # dropping a store reference and freeing its physical pages must
+            # never diverge: EVERY store removal (LRU eviction, overwrite,
+            # explicit pop) decrefs through this hook
+            self.prefix_store.lru.on_evict = self._on_prefix_evict
         # context buckets need linear cache placement (pos == write index)
         self._ctx_buckets = serving.context_buckets
 
@@ -355,7 +510,8 @@ class TierEngine:
     # ------------------------------------------------------------------
 
     def _fused(self, tokens: np.ndarray, positions: np.ndarray,
-               budgets: np.ndarray, teff: int, k_steps: int) -> np.ndarray:
+               budgets: np.ndarray, teff: int, k_steps: int,
+               rids: np.ndarray) -> np.ndarray:
         """``k_steps`` decode steps: decode -> on-device sample -> per-slot
         EOS/budget/cap masking, the cache updated in place. Returns the
         (B, k_steps) token block; the only host sync is its copy.
@@ -373,6 +529,9 @@ class TierEngine:
         tok = torch.as_tensor(tokens, device=dev)
         pos = torch.as_tensor(positions, device=dev)
         budgets_d = torch.as_tensor(budgets, device=dev)
+        if self.temp > 0:
+            keys_d = torch.as_tensor(self._keys.astype(np.int64), device=dev)
+            rids_d = torch.as_tensor(rids, device=dev)
         alive = budgets_d > 0
         produced = torch.zeros_like(budgets_d)
         bi = torch.arange(tok.shape[0], device=dev)
@@ -384,8 +543,7 @@ class TierEngine:
                 params, cache, {"tokens": tok[:, None], "positions": pos},
                 ctx=ctx)
             if self.temp > 0:
-                probs = torch.softmax(logits / self.temp, dim=-1)
-                sampled = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+                sampled = keyed_sample(logits, keys_d, rids_d, pos, self.temp)
             else:
                 sampled = torch.argmax(logits, dim=-1)
             sampled = sampled.to(torch.int32)
@@ -432,40 +590,43 @@ class TierEngine:
         c = self.cache
         c["pos"][slots_d] = pos1
         c["index"][slots_d] = idx1
-        for name in _PAGED_LEAVES:
-            one = cache1["blocks"][name]
-            pool = c["blocks"][name]
+        for name, one in _named_leaves(cache1["blocks"], "['blocks']"):
+            pool = _get(c, name)
+            bax = self._axis_by_name[name][0]
             if pt_rows is None:
-                pool[:, slots_d] = one.to(pool.dtype)
+                pool[_at(bax, slots_d)] = one.to(pool.dtype)
             else:
-                n_layers, r, _, kh, hd = one.shape
                 page = self.serving.kv_page_size
-                one = one.reshape(n_layers, r, self._n_pt, page, kh, hd)
+                one = one.reshape(one.shape[:bax + 1] + (self._n_pt, page)
+                                  + one.shape[bax + 2:])
                 pt_sl = torch.as_tensor(pt_rows[:, :npg], device=dev).long()
-                pool[:, pt_sl] = one[:, :, :npg].to(pool.dtype)
+                pool[_at(bax, pt_sl)] = one[_at(bax + 1, slice(0, npg))].to(
+                    pool.dtype)
         if pt_rows is not None:
             c["pages"][slots_d] = torch.as_tensor(pt_rows, device=dev)
         return logits
 
     def _insert_cache(self, cache1: Dict[str, Any], slot: int) -> None:
-        """Copy a batch-1 prefill cache into slot ``slot`` (through the page
-        table on paged engines; unreserved tail entries land on the null
+        """Copy a batch-1 cache into slot ``slot`` (through the page table
+        on paged engines: CoW-shared pages receive the very bytes that were
+        gathered out of them, unreserved tail entries land on the null
         page)."""
         c = self.cache
-        c["pos"][slot] = cache1["pos"][0]
-        c["index"][slot] = cache1["index"][0]
-        if self._pt is None:
-            for name in _PAGED_LEAVES:
-                c["blocks"][name][:, slot] = cache1["blocks"][name][:, 0]
-            return
-        page = self.serving.kv_page_size
-        pt = torch.as_tensor(self._pt[slot], device=self.device)
-        for name in _PAGED_LEAVES:
-            row = cache1["blocks"][name][:, 0]  # (L, T, K, hd)
-            n_layers, _, kh, hd = row.shape
-            c["blocks"][name][:, pt.long()] = row.reshape(
-                n_layers, self._n_pt, page, kh, hd).to(c["blocks"][name].dtype)
-        c["pages"][slot] = pt
+        pt = (None if self._pt is None
+              else torch.as_tensor(self._pt[slot], device=self.device))
+        for name, one in _named_leaves(cache1):
+            bax = self._axis_by_name[name][0]
+            leaf = _get(c, name)
+            row = one[_at(bax, 0)]
+            if name in self._paged_names:
+                page = self.serving.kv_page_size
+                row = row.reshape(row.shape[:bax] + (self._n_pt, page)
+                                  + row.shape[bax + 1:])
+                leaf[_at(bax, pt.long())] = row.to(leaf.dtype)
+            else:
+                leaf[_at(bax, slot)] = row.to(leaf.dtype)
+        if pt is not None:
+            c["pages"][slot] = pt
 
     def _context_bucket(self, needed: int) -> int:
         """Smallest {2^n, 1.5*2^n} ladder value covering ``needed``
@@ -483,10 +644,10 @@ class TierEngine:
                session: Optional[str] = None) -> None:
         """Queue a prompt. ``deadline`` (monotonic seconds) enables
         EDF-ordered admission: the waiting queue is drained
-        earliest-deadline-first instead of FIFO."""
-        if session is not None:
-            raise NotImplementedError(
-                f"multi-turn sessions are not ported yet: {_WARM_ITEM}")
+        earliest-deadline-first instead of FIFO. ``session`` names a
+        multi-turn session: the finished turn's slot state is parked so a
+        later turn whose prompt extends this conversation resumes it
+        (prefilling only the new tokens)."""
         self.journal.append(("submit", {"rid": rid, "tokens": tokens,
                                         "max_new": max_new,
                                         "extras": extras,
@@ -513,22 +674,479 @@ class TierEngine:
                 return True
         return False
 
-    # -- not ported yet -------------------------------------------------------
+    # -- cross-tier KV migration -------------------------------------------
+
+    def _leaf_rows(self):
+        """``(name, leaf, batch_axis)`` per cache leaf of a DENSE engine."""
+        for name, leaf in _named_leaves(self.cache):
+            yield name, leaf, self._axis_by_name[name][0]
+
+    def _slot_payload(self, slot: int) -> SlotPayload:
+        """Slot ``slot``'s full migratable state (cache rows, SeqState,
+        position, sampling key, prompt tokens). The rows are copies on this
+        engine's device; ``to_bytes`` moves them to the host, so a payload
+        parked and resumed on the same tier never leaves the device."""
+        if self._pt is not None:
+            leaves = self._gather_slot_rows(slot)
+        else:
+            leaves = {name: leaf[_at(bax, slot)].clone()
+                      for name, leaf, bax in self._leaf_rows()}
+        return SlotPayload(
+            version=MIGRATION_WIRE_VERSION, model=self.cfg.name,
+            family=self.cfg.family, max_seq=self.serving.max_seq,
+            seq=self._copy_seq(self.slots[slot]),
+            position=int(self.positions[slot]),
+            key=self._keys[slot].copy(), leaves=leaves,
+            prompt_tokens=self._slot_prompt[slot],
+            extras_fp=self._slot_extras_fp[slot])
 
     def extract_slot(self, rid: int, *, remove: bool = False) -> SlotPayload:
-        raise NotImplementedError(f"KV migration: {_WARM_ITEM}")
+        """Serialize one request's migratable state (see ``SlotPayload``).
+        ``remove=True`` frees the slot (preemption / re-homing); the default
+        keeps the donor decoding (hedged clone races the original)."""
+        slot = next((i for i, s in enumerate(self.slots)
+                     if s is not None and s.rid == rid), None)
+        if slot is None:
+            raise MigrationError(
+                f"rid {rid} holds no decode slot on this engine")
+        payload = self._slot_payload(slot)
+        if remove:
+            self.slots[slot] = None  # KV rows overwritten on the next admit
+            self._release_pages(slot)
+        self.journal.append(("extract", {"rid": rid, "removed": remove}))
+        return payload
 
     def inject_slot(self, payload: SlotPayload) -> int:
-        raise NotImplementedError(f"KV migration: {_WARM_ITEM}")
+        """Install a migrated request into a free slot and resume its decode
+        exactly where the donor left off (no prefill: ``prefill_tokens``
+        does not move). Validates the wire version, model spec, every
+        leaf's shape/dtype, the key and (paged) the page reservation BEFORE
+        touching the cache; any mismatch raises :class:`MigrationError` and
+        leaves this engine unchanged."""
+        if payload.version != MIGRATION_WIRE_VERSION:
+            raise MigrationError(
+                f"wire format version {payload.version} != supported "
+                f"{MIGRATION_WIRE_VERSION}")
+        if payload.model != self.cfg.name or payload.family != self.cfg.family:
+            raise MigrationError(
+                f"payload from {payload.model!r} ({payload.family}) cannot be "
+                f"injected into {self.cfg.name!r} ({self.cfg.family}): KV "
+                f"caches are model-specific")
+        if any(s is not None and s.rid == payload.seq.rid for s in self.slots):
+            raise MigrationError(
+                f"rid {payload.seq.rid} already occupies a slot here")
+        slot = self._free_slot()
+        if slot is None:
+            raise MigrationError("no free decode slot to inject into")
+        rows = dict(payload.leaves)
+        if set(self._row_specs) != set(rows):
+            raise MigrationError(
+                f"cache leaf mismatch: payload has {sorted(rows)}, engine "
+                f"expects {sorted(self._row_specs)}")
+        for name, (want, dtype) in self._row_specs.items():
+            row = rows[name]
+            if tuple(row.shape) != tuple(want):
+                raise MigrationError(
+                    f"leaf {name}: payload row shape {tuple(row.shape)} != "
+                    f"engine row shape {tuple(want)} (max_seq "
+                    f"{payload.max_seq} vs {self.serving.max_seq}?)")
+            if dtype_tag(row) != dtype:
+                raise MigrationError(
+                    f"leaf {name}: payload dtype {dtype_tag(row)} != engine "
+                    f"dtype {dtype}")
+        key = np.asarray(payload.key)
+        if key.shape != (2,) or key.dtype != np.uint32:
+            raise MigrationError(
+                f"sampling key {key.dtype}{list(key.shape)} is not uint32[2]")
+        if self.pool is not None:
+            seq = payload.seq
+            total = min(payload.position
+                        + max(int(seq.max_new) - len(seq.generated), 0) + 1,
+                        self.serving.max_seq)
+            pages = self._reserve_pages(self._page_need(total))
+            if pages is None:
+                raise MigrationError(
+                    "no free KV pages to inject into (pool exhausted)")
+            self._assign_pages(slot, pages)
+        self._install_rows(slot, rows)
+        self.slots[slot] = self._copy_seq(payload.seq)
+        self.positions[slot] = payload.position
+        self._keys[slot] = key
+        self._slot_prompt[slot] = (None if payload.prompt_tokens is None
+                                   else np.asarray(payload.prompt_tokens))
+        self._slot_extras_fp[slot] = payload.extras_fp
+        self.journal.append(("inject", {"rid": payload.seq.rid, "slot": slot}))
+        return slot
+
+    # -- prefix & session KV reuse -----------------------------------------
+
+    def _job_fp(self, job: Dict[str, Any]) -> bytes:
+        """Extras fingerprint of a waiting job, computed once and cached."""
+        fp = job.get("_fp")
+        if fp is None:
+            fp = extras_fingerprint(job["extras"])
+            job["_fp"] = fp
+        return fp
+
+    def _rows_compatible(self, rows: Dict[str, Any]) -> bool:
+        """True when ``rows`` (keystr -> per-slot row) matches this engine's
+        DENSE per-slot row geometry exactly (same leaves, shapes, dtypes).
+        Paged and dense engines share the geometry."""
+        if set(rows) != set(self._row_specs):
+            return False
+        for name, (shape, dtype) in self._row_specs.items():
+            row = rows[name]
+            if tuple(row.shape) != tuple(shape) or dtype_tag(row) != dtype:
+                return False
+        return True
+
+    def _payload_resumable(self, p: SlotPayload) -> bool:
+        return (p.version == MIGRATION_WIRE_VERSION
+                and p.model == self.cfg.name
+                and p.family == self.cfg.family
+                and p.max_seq == self.serving.max_seq
+                and self._rows_compatible(p.leaves))
+
+    @staticmethod
+    def _payload_tokens(p: SlotPayload) -> Optional[np.ndarray]:
+        """The tokens a payload's cache rows cover: the prompt plus every
+        generated token except the last (sampled but never fed)."""
+        if p.prompt_tokens is None:
+            return None
+        prompt = np.asarray(p.prompt_tokens, np.int32)
+        gen = np.asarray(p.seq.generated[:-1], np.int32)
+        return np.concatenate([prompt, gen]) if gen.size else prompt
 
     def park_session(self, rid: int, sid: Optional[str] = None) -> bool:
-        raise NotImplementedError(f"session parking: {_WARM_ITEM}")
+        """Mark a queued or in-flight request so its slot state parks under
+        ``sid`` when it finishes (``submit(session=...)`` does this up
+        front). Returns False when the rid is unknown or no sid is set."""
+        for j in self.waiting:
+            if j["rid"] == rid:
+                j["session"] = sid or j.get("session")
+                return j["session"] is not None
+        for s in self.slots:
+            if s is not None and s.rid == rid:
+                s.session = sid or s.session
+                return s.session is not None
+        return False
 
-    def resume_session(self, sid: str):
-        raise NotImplementedError(f"session resume: {_WARM_ITEM}")
+    def resume_session(self, sid: str) -> Optional[ParkedSession]:
+        """Pop a parked session (the caller consumes its rows). Admission
+        does this internally; it is public for cross-tier moves."""
+        return self.sessions.resume(sid)
 
     def adopt_session(self, sid: str, payload: SlotPayload) -> bool:
-        raise NotImplementedError(f"session adoption: {_WARM_ITEM}")
+        """Install a session payload parked on ANOTHER engine (the sticky
+        router moved it here). Incompatible payloads are refused: the next
+        turn then falls back to a cold prefill."""
+        if not self._payload_resumable(payload):
+            return False
+        tokens = self._payload_tokens(payload)
+        if tokens is None:
+            return False
+        nbytes = sum(v.nbytes for v in payload.leaves.values())
+        ok = self.sessions.park(sid, ParkedSession(
+            tokens=tokens, extras_fp=payload.extras_fp,
+            nbytes=float(nbytes), data=payload))
+        if ok:
+            self.journal.append(("adopt", {"sid": sid}))
+        return ok
+
+    def _park(self, slot: int, st: SeqState) -> None:
+        """Park a finishing slot's state under its session id (called from
+        ``_finish_slot`` while the cache rows are still intact)."""
+        if not st.session or not self.sessions.enabled:
+            return
+        if self._slot_prompt[slot] is None:
+            return  # injected without prompt tokens: nothing to match later
+        payload = self._slot_payload(slot)
+        tokens = self._payload_tokens(payload)
+        nbytes = sum(v.nbytes for v in payload.leaves.values())
+        ok = self.sessions.park(st.session, ParkedSession(
+            tokens=tokens, extras_fp=self._slot_extras_fp[slot],
+            nbytes=float(nbytes), data=payload))
+        if ok:
+            self.parks += 1
+            self.journal.append(("park", {"rid": st.rid, "sid": st.session}))
+            if self.on_park is not None:
+                self.on_park(st.rid, st.session)
+
+    def _warm_plan(self, job: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """Reuse plan for a waiting job: a parked session its prompt
+        extends, else a stored prefix it extends; None means cold prefill.
+        ``rows``/``start`` describe the cache state to re-inject;
+        ``time_len`` is set when ``rows`` are seq-sliced pieces that must be
+        pasted into zeroed full-capacity rows."""
+        tokens = np.asarray(job["tokens"])
+        cap = self.serving.max_seq
+        sid = job.get("session")
+        if sid and self.sessions.enabled:
+            parked = self.sessions.peek(sid)
+            if parked is not None and parked.extras_fp == self._job_fp(job):
+                suffix = extension_suffix(parked.tokens, tokens)
+                p = parked.data
+                if (suffix is not None and isinstance(p, SlotPayload)
+                        and self._payload_resumable(p)
+                        and p.position + len(suffix) + 1 < cap):
+                    # the parked rows are popped at COMMIT time (in
+                    # _admit_warm_hits): page reservation may still defer
+                    # this admission. cached counts the cache POSITIONS
+                    # reused (vision prefix included)
+                    return {"kind": "resume", "rows": p.leaves,
+                            "start": p.position, "time_len": None,
+                            "suffix": suffix, "cached": p.position,
+                            "sid": sid}
+        if self.prefix_store.enabled:
+            e = self.prefix_store.lookup(tokens, self._job_fp(job))
+            if e is None:
+                return None
+            suffix = np.asarray(tokens[len(e.tokens):])
+            vis = self._prompt_prefix(job["extras"])
+            start = vis + len(e.tokens)
+            if start + len(suffix) + 1 < cap:
+                plan = {"kind": "prefix", "rows": e.data, "start": start,
+                        "time_len": start, "suffix": suffix,
+                        "cached": start}
+                if self._pt is not None:
+                    # paged entry: {"pages", "t_len"}; rows are gathered
+                    # (and full pages CoW-shared) at admit
+                    plan["rows"] = None
+                    plan["pages_entry"] = e.data
+                return plan
+        return None
+
+    def _admit_warm_hits(self) -> None:
+        i = 0
+        while i < len(self.waiting):
+            slot = self._free_slot()
+            if slot is None:
+                return
+            job = self.waiting[i]
+            plan = self._warm_plan(job)
+            if plan is None:
+                i += 1
+                continue
+            if self.pool is not None and not self._reserve_warm(job, plan):
+                # starved for pages: stop admitting (FIFO within warm hits)
+                # and let the fused block split at the pressure boundary
+                self._page_pressure = True
+                return
+            if plan.get("sid"):
+                self.sessions.resume(plan["sid"])  # rows consumed this turn
+            del self.waiting[i]
+            self._admit_warm(job, slot, plan)
+
+    def _reserve_warm(self, job: Dict[str, Any],
+                      plan: Dict[str, Any]) -> bool:
+        """Reserve ``job``'s full page budget for a warm admission. FULL
+        pages strictly behind the reused frontier are CoW-shared from the
+        store entry (incref, no copy); the boundary page and the growth tail
+        come from fresh pages. All-or-nothing: on failure every reference
+        taken here is dropped."""
+        start = int(plan["start"])
+        total = min(start + len(plan["suffix"]) + int(job["max_new"]),
+                    self.serving.max_seq)
+        need = self._page_need(total)
+        ent = plan.get("pages_entry")
+        shared: List[int] = []
+        if ent is not None:
+            ps = self.serving.kv_page_size
+            shared = [int(p) for p in ent["pages"][:int(ent["t_len"]) // ps]]
+            # pin BEFORE allocating: _reserve_pages may evict this very
+            # store entry under pressure, and its pages must survive
+            self.pool.incref(shared)
+        fresh = self._reserve_pages(need - len(shared))
+        if fresh is None:
+            if shared:
+                self.pool.decref(shared)
+            return False
+        plan["_pages"] = shared + fresh
+        return True
+
+    def _admit_warm(self, job: Dict[str, Any], slot: int,
+                    plan: Dict[str, Any]) -> None:
+        """Copy reused cache rows into a batch-1 cache, prefill ONLY the
+        suffix in one ``decode_chunk`` pass, and scatter the result into
+        ``slot``. ``prefill_tokens`` moves by the suffix length alone."""
+        cap = self.serving.max_seq
+        dev = self.device
+        pages = plan.pop("_pages", None)
+        if pages is not None:
+            self._assign_pages(slot, pages)
+        rows = plan["rows"]
+        if rows is None and plan.get("pages_entry") is not None:
+            # copy-free hit: the shared pages are already mapped into the
+            # slot's table; gather them once into seq-sliced dense pieces
+            # for the batch-1 suffix prefill below
+            rows = self._gather_prefix_rows(plan["pages_entry"])
+        t_len = plan["time_len"]
+        start = int(plan["start"])
+        suffix = np.asarray(plan["suffix"], np.int32)
+
+        cache1: Dict[str, Any] = {}
+        for name, (full, dtype) in self._dense_specs.items():
+            bax, sax = self._axis_by_name[name]
+            shape = full[:bax] + full[bax + 1:]
+            row = rows.get(name)
+            if row is not None and tuple(row.shape) == tuple(shape):
+                # a COPY: decode_chunk writes in place, and a parked or
+                # stored row must survive its admission
+                out = _as_tensor(row, dtype, dev).clone()
+            elif row is not None:  # seq-sliced piece -> paste into zeros
+                rsax = sax - (1 if sax > bax else 0)
+                out = torch.zeros(shape, dtype=dtype, device=dev)
+                out.narrow(rsax, 0, row.shape[rsax]).copy_(
+                    _as_tensor(row, dtype, dev))
+            elif name == "['pos']":  # synthesized: linear placement
+                out = torch.full(shape, -1, dtype=dtype, device=dev)
+                out[:t_len] = torch.arange(t_len, dtype=dtype, device=dev)
+            elif name == "['index']":
+                out = torch.tensor(t_len % cap, dtype=dtype, device=dev)
+            else:  # unreachable for known caches; keep the walk total
+                out = torch.zeros(shape, dtype=dtype, device=dev)
+            _put(cache1, name, out.unsqueeze(bax))
+        n = len(suffix)
+        total = start + n
+        # pad to the power-of-two ladder (like bucketed prefill); pad writes
+        # land past the true end and are re-masked below
+        np_ = min(_next_bucket(n, lo=8), cap - start)
+        toks = np.full((np_,), suffix[-1], np.int32)
+        toks[:n] = suffix
+        positions = start + np.arange(np_, dtype=np.int32)
+        teff = (self._context_bucket(start + np_ + 1) if self._ctx_buckets
+                else cap)
+        batch = {"tokens": torch.as_tensor(toks[None], device=dev),
+                 "positions": torch.as_tensor(positions[None], device=dev)}
+        if np_ > n:
+            batch["lengths"] = torch.as_tensor([n], dtype=torch.int32,
+                                               device=dev)
+        logits1, cache1 = self.model.decode_chunk(
+            self.params, cache1, batch, ctx=(teff if teff < cap else None))
+        first_logits = logits1.float().cpu().numpy()[0]
+        if np_ > n:
+            cache1["pos"] = torch.where(cache1["pos"] < total, cache1["pos"],
+                                        -1)
+            cache1["index"] = torch.full_like(cache1["index"], total % cap)
+        self._insert_cache(cache1, slot)
+        self._start_seq(job, slot, total, first_logits, prefill_count=n,
+                        warm=(plan["kind"], int(plan["cached"])))
+
+    def _store_prefixes(self, slot: int, job: Dict[str, Any]) -> None:
+        """Deposit a just-admitted slot's cache rows into the prefix store
+        at bucket-aligned prefix lengths."""
+        if not self.prefix_store.enabled:
+            return
+        tokens = np.asarray(job["tokens"])
+        vis = self._prompt_prefix(job["extras"])
+        if vis + len(tokens) > self.serving.max_seq:
+            return  # rolled/truncated cache rows don't map to positions
+        fp = self._job_fp(job)
+        store = self.prefix_store
+        need = [L for L in prefix_buckets(len(tokens), store.min_prefix)
+                if not store.contains(tokens[:L], fp)]
+        if not need:
+            return
+        if self._pt is not None:
+            # copy-free deposit: the entry is a page-id list increfing the
+            # slot's own pages, no row duplication. The boundary page is
+            # increfed for CONTENT liveness only (warm hits CoW-share just
+            # the full pages strictly behind t_len; the depositor keeps
+            # writing rows >= t_len on that page, which readers never see
+            # because they slice to t_len).
+            ps = self.serving.kv_page_size
+            for L in need:
+                t_len = vis + L
+                npg = pages_needed(t_len, ps, self.serving.max_seq)
+                pages = [int(p) for p in self._pt[slot][:npg]]
+                self.pool.incref(pages)
+                ok = store.insert(tokens[:L], fp,
+                                  npg * self.pool.page_bytes,
+                                  {"pages": pages, "t_len": t_len},
+                                  sliceable=True)
+                if not ok:
+                    self.pool.decref(pages)
+            return
+        # rows stay on the device: a copy of each bucket's slice
+        rows = {name: leaf[_at(bax, slot)]
+                for name, leaf, bax in self._leaf_rows()
+                if name not in _BOOKKEEPING}
+        for L in need:
+            t_len = vis + L
+            data = {}
+            nb = 0.0
+            for name, row in rows.items():
+                bax, sax = self._axis_by_name[name]
+                rsax = sax - (1 if sax > bax else 0)
+                piece = row.narrow(rsax, 0, t_len).clone()
+                nb += piece.nbytes
+                data[name] = piece
+            store.insert(tokens[:L], fp, nb, data, sliceable=True)
+
+    def _on_prefix_evict(self, entry) -> None:
+        """Store removal hook: decref a paged entry's shared pages."""
+        data = getattr(entry, "data", None)
+        if isinstance(data, dict) and "pages" in data:
+            self.pool.decref(data["pages"])
+
+    def _gather_slot_rows(self, slot: int) -> Dict[str, Any]:
+        """Dense-geometry per-slot rows gathered THROUGH the page table:
+        the paged engine's side of the (unchanged) migration wire format.
+        Rows past the written frontier come from the null page; their
+        positions are -1, so they are masked wherever they land."""
+        n_pt, page = self._n_pt, self.serving.kv_page_size
+        pt = torch.as_tensor(self._pt[slot], device=self.device).long()
+        rows = {}
+        for name, leaf in _named_leaves(self.cache):
+            if name == "['pages']":
+                continue
+            bax = self._axis_by_name[name][0]
+            if name in self._paged_names:
+                g = leaf[_at(bax, pt)]  # (..., n_pt, page, ...)
+                rows[name] = g.reshape(g.shape[:bax] + (n_pt * page,)
+                                       + g.shape[bax + 2:])
+            else:
+                rows[name] = leaf[_at(bax, slot)].clone()
+        return rows
+
+    def _gather_prefix_rows(self, ent: Dict[str, Any]) -> Dict[str, Any]:
+        """Materialize a paged prefix-store entry ({"pages", "t_len"}) into
+        the seq-sliced dense pieces the warm-admission build step pastes;
+        the deposit itself was copy-free (page increfs, no row copies)."""
+        page = self.serving.kv_page_size
+        t_len = int(ent["t_len"])
+        npg = len(ent["pages"])
+        pt = torch.as_tensor(ent["pages"], dtype=torch.long,
+                             device=self.device)
+        rows = {}
+        for name in self._paged_names:
+            leaf = _get(self.cache, name)
+            bax = self._axis_by_name[name][0]
+            g = leaf[_at(bax, pt)]
+            g = g.reshape(g.shape[:bax] + (npg * page,) + g.shape[bax + 2:])
+            rows[name] = g[_at(bax, slice(0, t_len))]
+        return rows
+
+    def _install_rows(self, slot: int, rows: Dict[str, Any]) -> None:
+        """Scatter dense-geometry per-slot rows into ``slot`` (through the
+        page table on paged engines). Inverse of ``_gather_slot_rows``."""
+        pt = (None if self._pt is None
+              else torch.as_tensor(self._pt[slot], device=self.device))
+        for name, (_, dtype) in self._dense_specs.items():
+            leaf = _get(self.cache, name)
+            bax = self._axis_by_name[name][0]
+            row = _as_tensor(rows[name], dtype, self.device)
+            if name in self._paged_names:
+                page = self.serving.kv_page_size
+                row = row.reshape(row.shape[:bax] + (self._n_pt, page)
+                                  + row.shape[bax + 1:])
+                leaf[_at(bax, pt.long())] = row
+            else:
+                leaf[_at(bax, slot)] = row
+        if pt is not None:
+            self.cache["pages"][slot] = pt
+
+    # -- speculative decoding: not ported yet -------------------------------
 
     def spec_slot(self, rid: int) -> Optional[int]:
         raise NotImplementedError(_SPEC_ITEM)
@@ -599,10 +1217,16 @@ class TierEngine:
                             self.serving.max_seq)
 
     def _reserve_pages(self, n: int) -> Optional[List[int]]:
-        """Allocate ``n`` fresh pages; None when the pool is short."""
+        """Allocate ``n`` fresh pages, reclaiming prefix-store LRU entries
+        under pressure (store-held pages are spare capacity: a live request
+        always beats a cached prefix). None when the pool is truly short."""
         if n <= 0:
             return []
-        return self.pool.alloc(n)
+        pool = self.pool
+        while not pool.can_alloc(n):
+            if self.prefix_store.evict_oldest() is None:
+                break
+        return pool.alloc(n)
 
     def _assign_pages(self, slot: int, pages: List[int]) -> None:
         """Record ``slot``'s page list and host page table. The DEVICE page
@@ -614,10 +1238,10 @@ class TierEngine:
             self._pt[slot] = row
 
     def _release_pages(self, slot: int) -> None:
-        """Drop ``slot``'s page references and retarget its DEVICE page
-        table at the null page: a freed slot keeps stepping inside the fused
-        block, and its dead writes must never land on a page that may be
-        re-allocated."""
+        """Drop ``slot``'s page references (pages whose last reader this was
+        rejoin the free list) and retarget its DEVICE page table at the null
+        page: a freed slot keeps stepping inside the fused block, and its
+        dead writes must never land on a page that may be re-allocated."""
         if self.pool is None:
             return
         if self._slot_pages[slot]:
@@ -648,23 +1272,48 @@ class TierEngine:
         return g["pages_free"] / max(1, g["pages_total"])
 
     def _start_seq(self, job: Dict[str, Any], slot: int, prompt_len: int,
-                   first_logits: np.ndarray) -> None:
-        """Shared admit bookkeeping: first token, done-check, journal."""
+                   first_logits: np.ndarray,
+                   prefill_count: Optional[int] = None,
+                   warm: Optional[tuple] = None) -> None:
+        """Shared admit bookkeeping: first token, done-check, journal.
+        ``prefill_count`` overrides the prefill-token charge (a warm admit
+        prefilled only its suffix); ``warm`` = (kind, cached_tokens) tags
+        prefix-hit / resumed-session admissions."""
         st = SeqState(rid=job["rid"], prompt_len=prompt_len,
                       max_new=job["max_new"], t_submit=job["t"],
                       session=job.get("session"))
-        first = self._sample(first_logits)
+        self._slot_prompt[slot] = np.asarray(job["tokens"], np.int32)
+        self._slot_extras_fp[slot] = (
+            self._job_fp(job)
+            if (st.session and self.sessions.enabled)
+            or self.prefix_store.enabled else b"")
+        first = self._sample(first_logits, slot, st.rid, prompt_len - 1)
         st.generated.append(int(first))
         st.t_first_token = time.monotonic()
         self.slots[slot] = st
         self.positions[slot] = prompt_len
-        self.prefill_tokens += prompt_len
+        charged = prompt_len if prefill_count is None else prefill_count
+        self.prefill_tokens += charged
         self.decode_tokens += 1
+        if warm is not None:
+            kind, cached = warm
+            if kind == "resume":
+                self.resumed_sessions += 1
+                self.resumed_tokens += cached
+            else:
+                self.prefix_hits += 1
+                self.prefix_hit_tokens += cached
+            self.journal.append(("warm", {"rid": st.rid, "kind": kind,
+                                          "cached": cached,
+                                          "suffix": charged}))
+            if self.on_warm is not None:
+                self.on_warm(st.rid, kind, cached, charged)
         self.journal.append(("admit", {"rid": st.rid, "slot": slot}))
         if self.on_admit is not None:
             self.on_admit(st.rid, st.t_first_token)
         if self.on_token is not None:
             self.on_token(st.rid, int(first), st.t_first_token)
+        self._store_prefixes(slot, job)
         # a request may be complete straight out of prefill (EOS first
         # token, max_new == 1, or a prompt already at capacity)
         if (first == self.eos_id or len(st.generated) >= st.max_new
@@ -675,6 +1324,7 @@ class TierEngine:
         st = self.slots[slot]
         st.done = True
         st.t_done = now
+        self._park(slot, st)  # while the slot's cache rows are intact
         self.finished.append(st)
         self.journal.append(("finish", {"rid": st.rid}))
         self.slots[slot] = None
@@ -697,8 +1347,8 @@ class TierEngine:
 
     def _admit(self) -> None:
         # page pressure is re-evaluated every admission pass: pages freed by
-        # finished slots clear it, a starved reservation below re-raises it
-        # and the next fused block splits early
+        # finished slots (or store eviction) clear it, a starved reservation
+        # below re-raises it and the next fused block splits early
         self._page_pressure = False
         if any(j.get("deadline") is not None for j in self.waiting):
             # EDF admission: earliest deadline first, FIFO among ties /
@@ -706,6 +1356,12 @@ class TierEngine:
             self.waiting.sort(key=lambda j: (
                 j["deadline"] if j.get("deadline") is not None
                 else float("inf"), j["t"]))
+        # warm admissions first (EDF order within them): a prompt extending
+        # a parked session or a stored prefix reuses the cached rows and
+        # prefills only its suffix; everything else falls through cold
+        if self.waiting and (self.sessions.enabled
+                             or self.prefix_store.enabled):
+            self._admit_warm_hits()
         if self.fused_steps <= 1 or not self.serving.bucket_prefill:
             self._admit_legacy()
         else:
@@ -817,14 +1473,17 @@ class TierEngine:
 
     # -- sampling / stepping ------------------------------------------------
 
-    def _sample(self, logits: np.ndarray) -> int:
+    def _sample(self, logits: np.ndarray, slot: int, rid: int,
+                position: int) -> int:
+        """One token from host logits (the first token after a prefill):
+        argmax at temperature 0, else the slot's keyed draw at
+        ``position``, the position of the token these logits follow."""
         if self.temp <= 0:
             return int(np.argmax(logits))
-        z = logits / self.temp
-        z = z - z.max()
-        p = np.exp(z)
-        p /= p.sum()
-        return int(self.rng.choice(len(p), p=p))
+        return int(keyed_sample(
+            torch.as_tensor(logits)[None], torch.as_tensor(
+                self._keys[slot:slot + 1].astype(np.int64)),
+            torch.tensor([rid]), torch.tensor([position]), self.temp)[0])
 
     def _throttle_sleep(self, t_in: float) -> None:
         if self.throttle > 1.0:
@@ -847,11 +1506,13 @@ class TierEngine:
         tokens = np.zeros((b,), np.int32)
         positions = np.zeros((b,), np.int32)
         budgets = np.zeros((b,), np.int32)
+        rids = np.zeros((b,), np.int64)
         for i in active:
             st = self.slots[i]
             tokens[i] = st.generated[-1]
             positions[i] = self.positions[i]
             budgets[i] = max(0, st.max_new - len(st.generated))
+            rids[i] = st.rid
         k = self.fused_steps
         if self.pool is not None and self._page_pressure and self.waiting:
             # continuous admission under page pressure: split the fused
@@ -864,7 +1525,7 @@ class TierEngine:
         if self._ctx_buckets:
             # smallest bucket covering every position the block can write
             teff = self._context_bucket(int(positions.max()) + k + 1)
-        block = self._fused(tokens, positions, budgets, teff, k)
+        block = self._fused(tokens, positions, budgets, teff, k, rids)
         now = time.monotonic()
         for i in active:
             st = self.slots[i]
@@ -905,8 +1566,8 @@ class TierEngine:
             st = self.slots[i]
             if st is None:
                 continue  # cancelled mid-step
+            nxt = self._sample(logits[i], i, st.rid, int(self.positions[i]))
             self.positions[i] += 1
-            nxt = self._sample(logits[i])
             st.generated.append(nxt)
             self.decode_tokens += 1
             if self.on_token is not None:
@@ -941,8 +1602,8 @@ class TierEngine:
                 if s else None)
 
     def snapshot(self) -> dict:
-        """Host copy of the engine state (cache, slots, queue, sampling
-        stream, page ownership)."""
+        """Host copy of the engine state (cache, slots, queue, per-slot
+        sampling keys, prompts, page ownership)."""
         out = {
             "cache": _tree_map(lambda t: t.detach().to("cpu", copy=True),
                                self.cache),
@@ -950,7 +1611,10 @@ class TierEngine:
             "positions": self.positions.copy(),
             "waiting": list(self.waiting),
             "steps": self.steps,
-            "keys": self._gen.get_state(),
+            "keys": self._keys.copy(),
+            "slot_prompt": [None if p is None else p.copy()
+                            for p in self._slot_prompt],
+            "slot_fp": list(self._slot_extras_fp),
         }
         if self.pool is not None:
             out["paged"] = {
@@ -968,9 +1632,17 @@ class TierEngine:
         self.waiting = list(snap["waiting"])
         self.steps = snap["steps"]
         if "keys" in snap:
-            self._gen.set_state(snap["keys"])
+            self._keys = np.asarray(snap["keys"], np.uint32).copy()
+        b = len(self.slots)
+        self._slot_prompt = [None if p is None else p.copy()
+                             for p in snap.get("slot_prompt", [None] * b)]
+        self._slot_extras_fp = list(snap.get("slot_fp", [b""] * b))
         if self.pool is not None:
+            # prefix-store entries hold page refs into the PRE-failure pool;
+            # drain them first (decrefs fire against the old pool), then
             # derive a fresh allocator from the snapshot's ownership lists
+            while self.prefix_store.evict_oldest() is not None:
+                pass
             pv = snap.get("paged") or {}
             self._slot_pages = [list(p) for p in
                                 pv.get("slot_pages",

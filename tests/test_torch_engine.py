@@ -2,7 +2,8 @@
 same (converted) weights: per-token and fused decode, dense and paged KV
 pools, prompts across two length buckets, a vlm request with patches,
 prefill attention ``auto`` on both sides and JAX ``pallas`` against port
-``torch``; and the port engine's snapshot/restore round trip."""
+``torch``; the port engine's snapshot/restore round trip; and which engine
+paths are live and which still raise."""
 import numpy as np
 import pytest
 
@@ -17,7 +18,7 @@ from repro_torch.config import ServingConfig  # noqa: E402
 from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.serving.engine import TierEngine  # noqa: E402
+from repro_torch.serving.engine import MigrationError, TierEngine  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")
 
@@ -114,17 +115,21 @@ def test_engine_keeps_attn_impl(models):
 
 
 def test_unported_engine_paths_raise_with_roadmap_item(models):
+    """Speculative decoding still raises with its ROADMAP item; migration,
+    sessions and the prefix store are live (tests/test_torch_sessions.py
+    and tests/test_torch_migration.py hold them to the JAX package)."""
     _, _, tm, tp = models
     eng = TierEngine(tm, tp, ServingConfig(max_batch=1, max_seq=64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(MigrationError, match="holds no decode slot"):
         eng.extract_slot(0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.spec_draft(0, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(0, np.arange(4, dtype=np.int32), session="s")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TierEngine(tm, tp, ServingConfig(max_batch=1, max_seq=64,
-                                         prefix_cache_mb=1.0))
+    eng.submit(0, np.arange(4, 20, dtype=np.int32), max_new=2, session="s")
+    eng.run_until_drained()
+    assert eng.parks == 1 and "s" in eng.sessions
+    warm = TierEngine(tm, tp, ServingConfig(max_batch=1, max_seq=64,
+                                            prefix_cache_mb=1.0))
+    assert warm.prefix_store.enabled
 
 
 def test_encode_image_matches_jax(models):

@@ -1,7 +1,8 @@
-"""The port stands alone: importing it loads no JAX, no module of it (nor
-chip_smoke.py) imports ``jax`` or the JAX package, nothing builds at
-import, and asking for CUDA without a card raises instead of falling back
-to the CPU."""
+"""The port stands alone: importing it (and a bf16 slot payload's trip
+through the migration wire) loads no JAX and no ``ml_dtypes``, no module
+of it (nor chip_smoke.py) imports ``jax``, ``ml_dtypes`` or the JAX
+package, nothing builds at import, and asking for CUDA without a card
+raises instead of falling back to the CPU."""
 import ast
 import os
 import subprocess
@@ -21,9 +22,20 @@ PORT = ROOT / "src" / "repro_torch"
 def test_importing_the_port_loads_no_jax():
     # a subprocess: this test process already imported jax (conftest)
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
-            "repro_torch.serving.tiers, repro_torch.kernels.ops\n"
+            "repro_torch.serving.tiers, repro_torch.kernels.ops, "
+            "repro_torch.serving.simulator\n"
+            "import numpy as np, torch\n"
+            "from repro_torch.serving.engine import SeqState, SlotPayload\n"
+            "k = torch.randn(2, 8, 2, 4).to(torch.bfloat16)\n"
+            "p = SlotPayload(version=2, model='m', family='vlm', max_seq=8, "
+            "seq=SeqState(rid=1, prompt_len=3), position=3, "
+            "key=np.zeros(2, np.uint32), leaves={'k': k})\n"
+            "q = SlotPayload.from_bytes(p.to_bytes())\n"
+            "assert q.leaves['k'].dtype == torch.bfloat16\n"
+            "assert torch.equal(q.leaves['k'], k)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+            "or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
             "assert not bad, bad\n"
             "from repro_torch.kernels import runtime\n"
             "assert not runtime._loaded, 'a kernel library loaded at import'\n")
@@ -47,7 +59,7 @@ def _imports(path: Path):
 def test_no_jax_or_reference_imports(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), (path, mod)
 
 
 def test_cuda_without_a_card_raises():

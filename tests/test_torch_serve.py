@@ -1,7 +1,8 @@
 """The port's control plane and live front end against the JAX package's:
 scheduler decisions and scores on one request stream, ClusterServer routes
 and tokens on edge-cloud with converted weights, and the launcher on the
-CPU."""
+CPU: its warm-serving and migration flags run to their summary lines, and
+the flags whose paths are not ported exit naming their ROADMAP item."""
 import dataclasses
 
 import numpy as np
@@ -99,9 +100,22 @@ def test_launcher_runs_on_cpu(capsys):
     assert "served 2 requests" in out
 
 
+@pytest.mark.parametrize("flag,summary", [
+    (["--migrate"], "migrated="), (["--hedge-in-service"], "served 2"),
+    (["--migrate-threshold", "2"], "migrated="),
+    (["--sessions", "2"], "sessions: "),
+    (["--prefix-cache-mb", "4"], "sessions: ")])
+def test_launcher_runs_warm_and_migration_flags_on_cpu(capsys, flag,
+                                                       summary):
+    from repro_torch.launch import serve
+
+    serve.main(["--device", "cpu", "--requests", "2", "--max-new", "2",
+                *flag])
+    out = capsys.readouterr().out
+    assert "served " in out and summary in out
+
+
 @pytest.mark.parametrize("flag", [
-    ["--migrate"], ["--hedge-in-service"], ["--migrate-threshold", "2"],
-    ["--sessions", "2"], ["--prefix-cache-mb", "4"],
     ["--speculate", "edge:cloud"], ["--transport", "process"]])
 def test_launcher_refuses_unported_flags(flag):
     from repro_torch.launch import serve

@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      all-masked slot, a window, a ragged context or sequence, a
      context-bucket view, a non-causal case and non-contiguous q (decode
      also at T = 1, 33, 97, 300 and 4096, pages of 16 and 64, one live
-     split among masked ones, and a forced single split); time the
+     split among masked ones, a forced single split, and dense at B=1,
+     the draft block's batch); time the
      kernel, the plain version and, where one PyTorch call computes the same
      function, that call (the port never calls it). Decode is timed as the
      decode loop meets it: launches rotate over a stacked cache larger than
@@ -51,12 +52,32 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      kernels ("cuda"), a prefix hit and a resumed session equal cold
      serving, paged and dense, and a temperature-0.7 migration equals the
      unmigrated run;
+  9. speculative decoding and process replicas: (a) at full width (bf16,
+     paged, attn_impl "cuda") the launcher's mix through
+     ClusterServer(spec=edge:cloud, k=4), failing unless 2+ requests
+     speculated, verify rounds ran, the drained pools hold no page and the
+     cloud's decode_tokens are its committed tokens; then a self-draft
+     pair on qwen2.5-vl-7b at k = 4 and 8, printing acceptance, agreement
+     with target-only decode, the verify round's time against a fused
+     block of k steps on the slot, the draft block's and the draft-side
+     sync's times, a round's whole cost per committed token against a fused
+     step's, and the draft's dense decode-attention launches (phase 3 holds
+     the dense kernel at the draft's batch-1 shapes); (b) at reduced size
+     in f32 with the kernels, paged and dense, at temperature 0 and 0.7:
+     perfect, garbage and partial drafts commit the fused tokens, and a
+     two-engine co-drive drafts the draft engine's own fused tokens and
+     commits the target's; (c) two spawned edge
+     replicas on "cuda" give the tokens of local replicas, and a killed
+     worker's rid is rescued by its sibling;
   7. ``python -m repro_torch.launch.serve --requests 4 --max-new 4``, then
      with ``--sessions 2 --turns 2 --prefix-cache-mb 64 --migrate``, which
-     must print its ``sessions:`` line (phase 8 (d)). Phase 7 runs last.
+     must print its ``sessions:`` line (phase 8 (d)), with ``--speculate
+     edge:cloud --draft-k 4`` (its ``speculation:`` line) and with
+     ``--replicas edge=2 --transport process`` (its ``replicas:`` lines;
+     phase 9 (d)). Phase 7 runs last.
 
 The line before the last is the kernels' JSON record (launches: phases 4,
-5 and 8 together); the last line is ``{"ok": true, "device": {...}}``.
+5, 8 and 9 together); the last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py                 # everything (one GPU)
     python3 chip_smoke.py --phases 1,2,3  # a subset, for debugging
@@ -491,6 +512,12 @@ def check_decode_dense(records):
          {"dead_slot": True}),
         ("edge T=4096 forced single split", 4, 12, 2, 128, 4096, 4096,
          {"split_rows": 4096}),
+        # the draft block (phase 9): a batch-1 dense copy of one slot,
+        # attended through the context bucket of a 512-row cache
+        ("cloud B=1 draft T=384", 1, 28, 4, 128, 512, 384, {}),
+        ("cloud B=1 draft T=512", 1, 28, 4, 128, 512, 512, {}),
+        ("edge B=1 draft T=384", 1, 12, 2, 128, 512, 384, {}),
+        ("edge B=1 draft T=512", 1, 12, 2, 128, 512, 512, {}),
     ]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -1445,15 +1472,413 @@ def phase_warm(records, built):
     warm_reduced_parity()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: speculative decoding and process replicas
+# ---------------------------------------------------------------------------
+
+
+def codrive(teng, deng, rid, prompt, max_new, k):
+    """Cross-tier speculation on one request, as the runtime's co-drive
+    runs it: the target ``teng`` admits it, the draft ``deng`` admits a
+    quiet shadow, then draft blocks of ``k`` and verify rounds alternate
+    until the request finishes or the draft runs out of room; the fused
+    path finishes the rest. Each draft block, verify round and draft-side
+    sync is timed to a synchronize, and the draft side's dense
+    decode-attention launches are counted. Returns the committed tokens and
+    the round records; ``blocks`` holds each draft block beside the number
+    of tokens the target had generated before it was verified."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    teng.submit(rid, prompt["tokens"], max_new=max_new,
+                extras=dict(prompt["extras"]))
+    teng._admit()
+    if teng.spec_slot(rid) is None:
+        fail(f"co-drive rid {rid}: the target did not admit")
+    if deng.spec_admit_quiet(rid, prompt["tokens"], max_new=max_new + k + 2,
+                             extras=dict(prompt["extras"])) is None:
+        fail(f"co-drive rid {rid}: the draft shadow did not admit")
+    deng.spec_set_pending(rid, teng.slots[teng.spec_slot(rid)].generated[-1])
+    teng.spec_begin(rid)
+    rec = {"draft_s": [], "verify_s": [], "sync_s": [], "draft_launches": 0,
+           "drafted": 0, "accepted": 0, "committed": 0, "rounds": 0,
+           "blocks": []}
+    while True:
+        torch.cuda.synchronize()
+        before = ops.launches()["decode_attention"]
+        t0 = time.perf_counter()
+        d = deng.spec_draft(rid, k)
+        torch.cuda.synchronize()
+        rec["draft_s"].append(time.perf_counter() - t0)
+        rec["draft_launches"] += ops.launches()["decode_attention"] - before
+        if d is None or len(d) == 0:
+            rec["draft_s"].pop()
+            break
+        rec["blocks"].append(
+            (len(teng.slots[teng.spec_slot(rid)].generated),
+             [int(t) for t in d]))
+        t0 = time.perf_counter()
+        res = teng.spec_verify(rid, d)
+        torch.cuda.synchronize()
+        rec["verify_s"].append(time.perf_counter() - t0)
+        rec["drafted"] += res["drafted"]
+        rec["accepted"] += res["accepted"]
+        rec["committed"] += len(res["committed"])
+        rec["rounds"] += 1
+        if res["finished"]:
+            break
+        t0 = time.perf_counter()
+        synced = deng.spec_sync(rid, res["committed"])
+        torch.cuda.synchronize()
+        rec["sync_s"].append(time.perf_counter() - t0)
+        if not synced:
+            break
+    deng.cancel(rid)
+    if teng.spec_slot(rid) is not None:
+        teng.spec_release(rid)
+    toks = {s.rid: list(s.generated) for s in teng.run_until_drained()}[rid]
+    teng.finished.clear()
+    return toks, rec
+
+
+def _pool_drained(eng, label):
+    """A drained paged engine with no prefix store holds no page."""
+    eng.pool.check()
+    if eng.pool.pages_free != eng.pool.num_pages:
+        fail(f"{label}: {eng.pool.num_pages - eng.pool.pages_free} pages "
+             f"still held after the drain")
+
+
+def _agreement(got, want):
+    same = sum(a == b for a, b in zip(got, want))
+    first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+    return (f"{same}/{len(want)} tokens equal to target-only decode, first "
+            f"divergence at {'none' if first is None else first}")
+
+
+def spec_full_width(records, built):
+    """Phase 9 (a): full width, bf16, paged, prefill attention "cuda":
+    the launcher's mix through ClusterServer(spec=edge:cloud, k=4), then a
+    self-draft pair (two engines over the cloud model and its weights) at
+    k = 4 and 8, against target-only decode of the same request."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import ServingConfig, SpecConfig, get_topology
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import TierEngine
+    from repro_torch.serving.tiers import ClusterServer
+
+    sv = ServingConfig(max_batch=4, max_seq=512, paged=True, kv_page_size=64,
+                       fused_steps=8)
+    topo = get_topology("edge-cloud")
+    engines = {name: TierEngine(model, params, sv)
+               for name, (model, params) in built.items()}
+    server = ClusterServer(engines, topology=topo,
+                           spec=SpecConfig("edge", "cloud", draft_k=4))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    # two requests pinned to cloud fusion (a hard text score), so the
+    # speculate gate opens for at least two
+    for i, (text, img) in enumerate(launcher_mix(4, seed=9)):
+        server.submit(text, image=img, max_new=16, slo_s=60.0,
+                      complexity={"text": 0.95} if i < 2 else None)
+    results = server.run(timeout_s=300.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    server.close()
+    if len(results) != 4 or any(r.failed for r in results):
+        fail(f"speculative serve: {len(results)}/4 resolved, failed "
+             f"{[r.rid for r in results if r.failed]}")
+    for r in results:
+        vocab = engines[r.tier].cfg.vocab_size
+        if not r.tokens or not all(0 <= t < vocab for t in r.tokens):
+            fail(f"speculative serve: rid {r.rid} tokens out of range")
+    outs = server.runtime.outcomes
+    spun = [o for o in outs if o.drafted_tokens > 0]
+    if len(spun) < 2:
+        fail(f"speculative serve: {len(spun)} requests speculated, want 2+")
+    cloud = engines["cloud"]
+    if cloud.spec_rounds <= 0:
+        fail("speculative serve: no verify round ran")
+    served = sum(len(r.tokens) for r in results if r.tier == "cloud")
+    if cloud.decode_tokens != served:
+        fail(f"speculative serve: cloud decode_tokens {cloud.decode_tokens} "
+             f"!= {served} committed tokens")
+    for name, eng in engines.items():
+        _pool_drained(eng, f"speculative serve {name}")
+    drafted = sum(o.drafted_tokens for o in outs)
+    accepted = sum(o.accepted_tokens for o in outs)
+    print(f"  speculative serve (edge drafts, cloud verifies, k=4): 4 "
+          f"requests in {wall:.3f}s, {len(spun)} speculated, "
+          f"{cloud.spec_rounds} verify rounds, {accepted}/{drafted} draft "
+          f"tokens accepted | launches {counts}")
+    for name, n in counts.items():
+        records[name]["launches"] = records[name].get("launches", 0) + n
+
+    # the self-draft pair: the accept path at real shapes
+    model, params = built["cloud"]
+    cfg = model.cfg
+    rng = np.random.default_rng(13)
+    prompt = {"tokens": rng.integers(4, cfg.vocab_size, 40).astype(np.int32),
+              "extras": {"patches": rng.standard_normal(
+                  (cfg.num_patches, cfg.frontend_dim)).astype(np.float32)}}
+    max_new = 48
+
+    def engine(serving=sv):
+        return TierEngine(model, params, serving, eos_id=-1)
+
+    alone = _alone(engine(), prompt, max_new)
+    ops.reset_launches()
+    for k in (4, 8):
+        teng, deng = engine(), engine()
+        toks, rec = codrive(teng, deng, 0, prompt, max_new, k)
+        if rec["rounds"] <= 0:
+            fail(f"self-draft k={k}: no verify round ran")
+        if teng.decode_tokens != len(toks) or len(toks) != max_new:
+            fail(f"self-draft k={k}: decode_tokens {teng.decode_tokens}, "
+                 f"{len(toks)} committed of {max_new}")
+        _pool_drained(teng, f"self-draft k={k} target")
+        _pool_drained(deng, f"self-draft k={k} draft")
+        # the draft block decodes a batch-1 DENSE copy of a paged slot
+        if rec["draft_launches"] != cfg.num_layers * deng.drafted_tokens:
+            fail(f"self-draft k={k}: {rec['draft_launches']} dense decode "
+                 f"launches for {deng.drafted_tokens} drafted tokens")
+        # k fused decode steps on one slot, the same request
+        fused = engine(dataclasses.replace(sv, fused_steps=k))
+        fused.submit(0, prompt["tokens"], max_new=max_new,
+                     extras=dict(prompt["extras"]))
+        fused.step()  # admission + the first block
+        blocks = []
+        while fused.slots[0] is not None and len(blocks) < 5:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fused.step()
+            torch.cuda.synchronize()
+            blocks.append(time.perf_counter() - t0)
+        fused.run_until_drained()
+        # a round's whole cost (draft block + verify + draft-side sync) per
+        # token it committed, against a fused step's
+        spent = sum(rec["draft_s"]) + sum(rec["verify_s"]) + sum(rec["sync_s"])
+        per_tok = spent / max(rec["committed"], 1)
+        print(f"  self-draft {cfg.name} bf16 k={k}: {rec['rounds']} rounds, "
+              f"{rec['accepted']}/{rec['drafted']} accepted "
+              f"({rec['accepted'] / max(rec['drafted'], 1):.0%}); "
+              f"{_agreement(toks, alone)} | verify round (k+1={k + 1} "
+              f"tokens, one chunk) median "
+              f"{statistics.median(rec['verify_s']) * 1e3:.2f} ms vs one "
+              f"fused block of {k} decode steps on the slot "
+              f"{statistics.median(blocks) * 1e3:.2f} ms (median of "
+              f"{len(blocks)}); draft block median "
+              f"{statistics.median(rec['draft_s']) * 1e3:.2f} ms; sync "
+              f"(draft-side chunk) median "
+              f"{statistics.median(rec['sync_s'] or [0.0]) * 1e3:.2f} ms; "
+              f"draft + verify + sync {spent * 1e3:.2f} ms for "
+              f"{rec['committed']} committed tokens, {per_tok * 1e3:.2f} ms a "
+              f"token vs fused {statistics.median(blocks) / k * 1e3:.2f} ms a "
+              f"token; draft side: {rec['draft_launches']} decode_attention "
+              f"(dense) launches")
+    counts = ops.launches()
+    for name, n in counts.items():
+        records[name]["launches"] = records[name].get("launches", 0) + n
+
+
+def _spec_drive_target(eng, prompt, max_new, draft_for):
+    """Target-side verify protocol with drafts from ``draft_for(generated)``
+    (an empty block stops speculating; the fused path finishes)."""
+    eng.submit(0, prompt["tokens"], max_new=max_new,
+               extras=dict(prompt["extras"]))
+    eng._admit()
+    if eng.spec_slot(0) is not None:
+        eng.spec_begin(0)
+        while eng.spec_slot(0) is not None:
+            draft = draft_for(list(eng.slots[eng.spec_slot(0)].generated))
+            if not draft:
+                break
+            res = eng.spec_verify(0, draft)
+            if res is None or res["finished"]:
+                break
+        if eng.spec_slot(0) is not None:
+            eng.spec_release(0)
+    return {s.rid: list(s.generated) for s in eng.run_until_drained()}[0]
+
+
+def spec_reduced_parity():
+    """Phase 9 (b): reduced f32 on the card, attn_impl and decode_impl
+    "cuda", paged and dense: perfect, garbage and partial drafts commit the
+    fused tokens, at temperature 0 and 0.7; and a two-engine co-drive (a
+    draft engine over the same model and weights) whose draft blocks are
+    the draft engine's own fused tokens and whose committed tokens are the
+    target's fused tokens."""
+    import numpy as np
+
+    from repro_torch.config import ServingConfig
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import TierEngine
+
+    cfg = reduced_config("qwen2-vl-2b").replace(dtype="float32")
+    model = build_model(cfg, attn_impl="cuda", device="cuda")
+    params = model.init(0)
+    rng = np.random.default_rng(0)
+    prompt = {"tokens": rng.integers(4, 200, 10).astype(np.int32),
+              "extras": {"patches": rng.standard_normal(
+                  (cfg.num_patches, cfg.frontend_dim)).astype(np.float32)}}
+    v = cfg.vocab_size
+    for paged in (False, True):
+        for temp in (0.0, 0.7):
+            def engine():
+                return TierEngine(model, params, ServingConfig(
+                    max_batch=2, max_seq=96, paged=paged, kv_page_size=16,
+                    decode_impl="cuda"), eos_id=-1, sample_temp=temp,
+                    seed=11)
+
+            ref = _alone(engine(), prompt, 16)
+            drafts = {
+                "perfect": lambda g: ref[len(g):len(g) + 4],
+                "garbage": lambda g: [(t + 1) % v
+                                      for t in ref[len(g):len(g) + 4]],
+                "partial": lambda g: [t if i != 2 else (t + 1) % v for i, t
+                                      in enumerate(ref[len(g):len(g) + 5])]}
+            for name, draft_for in drafts.items():
+                eng = engine()
+                got = _spec_drive_target(eng, prompt, 16, draft_for)
+                if got != ref:
+                    fail(f"reduced spec paged={paged} temp={temp} {name}: "
+                         f"{got} != fused {ref}")
+                if eng.decode_tokens != len(ref) or eng.spec_rounds <= 0:
+                    fail(f"reduced spec paged={paged} temp={temp} {name}: "
+                         f"decode_tokens {eng.decode_tokens}, rounds "
+                         f"{eng.spec_rounds}")
+                if paged:
+                    _pool_drained(eng, f"reduced spec {name}")
+            k, label = 4, f"reduced co-drive paged={paged} temp={temp}"
+            own = _alone(engine(), prompt, 16 + k + 2)  # the draft's fused
+            teng, deng = engine(), engine()
+            toks, rec = codrive(teng, deng, 0, prompt, 16, k)
+            if toks != ref:
+                fail(f"{label}: committed {toks} != fused {ref}")
+            if rec["rounds"] <= 0 or teng.decode_tokens != len(ref):
+                fail(f"{label}: {rec['rounds']} rounds, decode_tokens "
+                     f"{teng.decode_tokens}")
+            for n, block in rec["blocks"]:
+                if block != own[n:n + len(block)]:
+                    fail(f"{label}: draft block {block} after {n} tokens != "
+                         f"the draft engine's fused {own[n:n + len(block)]}")
+            if paged:
+                _pool_drained(teng, f"{label} target")
+                _pool_drained(deng, f"{label} draft")
+        print(f"  reduced f32 cuda paged={paged}: perfect, garbage and "
+              f"partial drafts commit the fused tokens at temperature 0 "
+              f"and 0.7; a two-engine co-drive drafts the draft engine's "
+              f"fused tokens and commits the target's "
+              f"({rec['accepted']}/{rec['drafted']} accepted at 0.7)")
+
+
+def process_replicas_cuda():
+    """Phase 9 (c): two spawned edge replicas on "cuda" (reduced f32,
+    paged) serve 4 requests with the tokens of two local replicas on the
+    card; a killed worker's rid is reported lost and its sibling serves it
+    with the local tokens."""
+    import numpy as np
+
+    from repro_torch.config import ServingConfig
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import TierEngine
+    from repro_torch.serving.pool import EnginePool
+    from repro_torch.serving.transport import (LocalTransport,
+                                               ProcessTransport, ReplicaSpec)
+
+    sv = ServingConfig(max_batch=2, max_seq=96, paged=True, kv_page_size=16)
+    cfg = reduced_config("qwen2-vl-2b").replace(dtype="float32")
+    rng = np.random.default_rng(3)
+    jobs = [(rid, rng.integers(4, 200, 8 + 5 * rid).astype(np.int32),
+             {"patches": rng.standard_normal(
+                 (cfg.num_patches, cfg.frontend_dim)).astype(np.float32)}
+             if rid % 2 else {}) for rid in range(5)]
+
+    def serve(pool, subset):
+        for rid, toks, extras in subset:
+            pool.submit_to(rid % 2, rid, toks, max_new=12, extras=extras,
+                           deadline=None, session=None)
+        fins, deadline = [], time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            f, active, lost = pool.poll()
+            fins.extend(f)
+            if lost:
+                fail(f"process replicas: rids {lost} lost")
+            if not active and not f:
+                return {s.rid: list(s.generated) for s in fins}
+            time.sleep(0.002)
+        fail("process replicas: the pool did not drain")
+
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    local = EnginePool("edge", [LocalTransport(TierEngine(model, params, sv))
+                                for _ in range(2)])
+    want = serve(local, jobs)
+    t0 = time.perf_counter()
+    pool = EnginePool("edge", [ProcessTransport(ReplicaSpec(
+        model="qwen2-vl-2b", serving=sv, param_seed=0, name=f"edge/{r}",
+        device="cuda")) for r in range(2)])
+    t_spawn = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        got = serve(pool, jobs[:4])
+        t_serve = time.perf_counter() - t0
+        if got != {rid: want[rid] for rid in range(4)}:
+            fail(f"process replicas: {got} != local {want}")
+        rid, toks, extras = jobs[4]
+        pool.submit_to(0, rid, toks, max_new=12, extras=extras,
+                       deadline=None, session=None)
+        pool.transports[0]._proc.kill()
+        lost, deadline = [], time.monotonic() + 60.0
+        while not lost and time.monotonic() < deadline:
+            _, _, lost = pool.poll()
+        if lost != [rid] or pool.n_alive != 1:
+            fail(f"process replicas: lost {lost} after the kill, "
+                 f"{pool.n_alive} alive")
+        pool.submit_to(1, rid, toks, max_new=12, extras=extras,
+                       deadline=None, session=None)
+        rescued = serve(pool, [])
+        if rescued != {rid: want[rid]}:
+            fail(f"process replicas: rescued {rescued} != local "
+                 f"{want[rid]}")
+    finally:
+        pool.close()
+    print(f"  process replicas on cuda: 2 workers ready in {t_spawn:.1f}s, "
+          f"4 requests in {t_serve:.3f}s with the local replicas' tokens; "
+          f"a killed worker's rid {rid} rescued by its sibling")
+
+
+def phase_spec(records, built):
+    spec_full_width(records, built)
+    spec_reduced_parity()
+    process_replicas_cuda()
+
+
 def phase_launcher():
     """The launcher's default run, then its warm-serving and migration
-    flags (phase 8 (d)), which must print the ``sessions:`` line."""
+    flags (phase 8 (d)), which must print the ``sessions:`` line, then
+    speculation (``speculation:``) and process replicas (the ``replicas:``
+    lines), phase 9 (d)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     for flags, want in (([], "served "),
                         (["--sessions", "2", "--turns", "2",
                           "--prefix-cache-mb", "64", "--migrate"],
-                         "sessions: ")):
+                         "sessions: "),
+                        (["--speculate", "edge:cloud", "--draft-k", "4"],
+                         "speculation: "),
+                        (["--replicas", "edge=2", "--transport", "process"],
+                         "  replicas[edge]: ")):
         proc = subprocess.run([sys.executable, "-m",
                                "repro_torch.launch.serve", "--requests", "4",
                                "--max-new", "4", *flags],
@@ -1462,18 +1887,21 @@ def phase_launcher():
         lines = proc.stdout.splitlines()
         print(f"  $ repro_torch.launch.serve --requests 4 --max-new 4 "
               f"{' '.join(flags)}")
-        for line in lines[:8]:
+        for line in lines[:9]:
             print(f"  | {line}")
         if proc.returncode != 0:
             fail(f"launcher {flags} exit {proc.returncode}:\n"
                  f"{proc.stderr[-3000:]}")
         if not any(line.startswith(want) for line in lines):
             fail(f"launcher {flags}: no {want.strip()!r} line")
+        if "--transport" in flags and not any(
+                line.startswith("replicas: ") for line in lines):
+            fail(f"launcher {flags}: no 'replicas:' line")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1500,11 +1928,11 @@ def main() -> None:
         check_decode_dense(records)
         check_decode_paged(records)
         check_flash(records)
-    if phases & {4, 5, 8} and 3 not in phases:
-        fail("phases 4, 5 and 8 record launches into phase 3's kernel "
+    if phases & {4, 5, 8, 9} and 3 not in phases:
+        fail("phases 4, 5, 8 and 9 record launches into phase 3's kernel "
              "records")
     built = None
-    if phases & {4, 5, 8}:
+    if phases & {4, 5, 8, 9}:
         engines, built = full_width_models()
     if 4 in phases or 5 in phases:
         print("phase 4-5: full-width prefill and serving (paged with the "
@@ -1519,6 +1947,11 @@ def main() -> None:
         print("phase 8: warm serving and migration (full-width sessions and "
               "prefix hits, paged <-> dense migration, reduced parity)")
         phase_warm(records, built)
+    if 9 in phases:
+        print("phase 9: speculative decoding (full-width edge:cloud serve and "
+              "self-draft pair, reduced parity) and process replicas on "
+              "cuda")
+        phase_spec(records, built)
     del built
     if 7 in phases:
         print("phase 7: launcher")

@@ -19,11 +19,16 @@ auditor at completion. ``--sessions N --turns T`` serves a multi-turn chat
 workload whose later turns resume their parked KV, ``--prefix-cache-mb``
 turns on the prefix store, and ``--migrate`` (with ``--hedge-in-service``
 or ``--migrate-threshold``) moves in-flight slots between tiers.
+``--speculate DRAFT:TARGET`` (with ``--draft-k``) lets one tier draft token
+blocks that another verifies, and ``--replicas TIER=N`` with ``--transport
+process`` runs each replica in its own worker process on ``--device``.
 
 PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --bandwidth 300e6
 PYTHONPATH=src python -m repro_torch.launch.serve --topology edge-regional-cloud
 PYTHONPATH=src python -m repro_torch.launch.serve --arrival-rate 4 --hedge-after 1
 PYTHONPATH=src python -m repro_torch.launch.serve --sessions 2 --turns 2 --prefix-cache-mb 64 --migrate
+PYTHONPATH=src python -m repro_torch.launch.serve --speculate edge:cloud --draft-k 4
+PYTHONPATH=src python -m repro_torch.launch.serve --replicas edge=2 --transport process
 """
 from __future__ import annotations
 
@@ -35,10 +40,11 @@ import time
 import numpy as np
 
 from repro_torch.config import (TOPOLOGIES, ResilienceConfig, ServingConfig,
-                                get_topology)
+                                SpecConfig, get_topology)
 from repro_torch.data.synthetic import make_image
 from repro_torch.serving.faults import FaultPlan
-from repro_torch.serving.tiers import ClusterServer, build_cluster_engines
+from repro_torch.serving.tiers import (ClusterServer, build_cluster_engines,
+                                       build_engine_pools)
 
 build_engines = build_cluster_engines  # legacy alias
 
@@ -53,44 +59,6 @@ def parse_replicas(specs) -> dict:
                              f"got {spec!r}")
         out[tier] = int(n)
     return out
-
-
-# flags whose engine paths this port does not have yet -> their ROADMAP item
-_UNPORTED = {
-    "speculate": ("--speculate", "item 9 (speculative decoding)"),
-}
-
-
-def _refuse_unported(args) -> None:
-    """Exit with a message for every flag whose path is not ported; a flag
-    is never silently ignored."""
-    for attr, (flag, item) in _UNPORTED.items():
-        if getattr(args, attr):
-            raise SystemExit(f"{flag} is not ported to repro_torch yet: "
-                             f"ROADMAP queue 1, {item}")
-    if args.transport != "local":
-        raise SystemExit("--transport process is not ported to repro_torch "
-                         "yet: ROADMAP queue 1, item 10 (replica processes)")
-
-
-def _local_pools(topo, sv: ServingConfig, counts: dict, device: str) -> dict:
-    """Replicated tiers behind in-process transports on ``device``: the
-    replicas of a tier share one model and its parameters."""
-    from repro_torch.configs import reduced_config
-    from repro_torch.models import build_model
-    from repro_torch.serving.engine import TierEngine
-    from repro_torch.serving.pool import EnginePool
-    from repro_torch.serving.transport import LocalTransport
-
-    pools = {}
-    for i, tier in enumerate(topo.tiers):
-        cfg = reduced_config(tier.model).replace(dtype="float32")
-        model = build_model(cfg, device=device)
-        params = model.init(i)
-        pools[tier.name] = EnginePool(tier.name, [
-            LocalTransport(TierEngine(model, params, sv))
-            for _ in range(counts[tier.name])])
-    return pools
 
 
 def main(argv=None) -> None:
@@ -172,6 +140,9 @@ def main(argv=None) -> None:
                          "in one batched decode step (e.g. edge:cloud); "
                          "requests fused on TARGET speculate when the "
                          "acceptance-rate EWMA clears SpecConfig.min_accept")
+    ap.add_argument("--draft-k", type=int, default=8,
+                    help="speculative draft block length (tokens drafted "
+                         "per verify round; only with --speculate)")
     ap.add_argument("--slo", type=float, default=5.0,
                     help="per-request SLO in seconds (drives EDF admission "
                          "and the on-time/goodput accounting)")
@@ -222,7 +193,6 @@ def main(argv=None) -> None:
                          "(0 = event-driven: sleep until the next "
                          "scheduled event)")
     args = ap.parse_args(argv)
-    _refuse_unported(args)
 
     sv = ServingConfig(max_batch=args.max_batch, max_seq=args.max_seq,
                        fused_steps=args.fused_steps,
@@ -266,14 +236,32 @@ def main(argv=None) -> None:
             health=args.quarantine_after > 0,
             quarantine_after=max(args.quarantine_after, 1),
             retry_backoff=args.retry_backoff, shed=args.shed)
+    spec = None
+    if args.speculate:
+        draft, sep, target = args.speculate.partition(":")
+        if not sep or not draft or not target:
+            raise SystemExit("--speculate wants DRAFT:TARGET, e.g. "
+                             "edge:cloud")
+        for name in (draft, target):
+            if name not in topo.names:
+                raise SystemExit(f"--speculate names unknown tier {name!r} "
+                                 f"(topology has {list(topo.names)})")
+        spec = SpecConfig(draft_tier=draft, target_tier=target,
+                          draft_k=args.draft_k)
+        print(f"speculative decoding: {draft} drafts k={args.draft_k}, "
+              f"{target} verifies")
     reps = parse_replicas(args.replicas)
     unknown = set(reps) - set(topo.names)
     if unknown:
         raise SystemExit(f"--replicas names unknown tiers {sorted(unknown)} "
                          f"(topology has {list(topo.names)})")
-    if reps:
+    if reps or args.transport != "local":
+        # replicated pools; unlisted tiers keep the launcher's historical
+        # single engine (TierSpec.servers stays a bench/model-level knob)
         counts = {name: reps.get(name, 1) for name in topo.names}
-        engines = _local_pools(topo, sv, counts, args.device)
+        engines = build_engine_pools(topo, sv, replicas=counts,
+                                     transport=args.transport,
+                                     device=args.device)
         rep_str = " ".join(f"{t}x{n}" for t, n in sorted(counts.items()))
         print(f"replicas: {rep_str} | transport {args.transport}")
     else:
@@ -285,7 +273,7 @@ def main(argv=None) -> None:
                            hedge_in_service=args.hedge_in_service,
                            sessions=args.sessions > 0,
                            session_move_threshold=args.session_move_threshold,
-                           fault_plan=plan, resilience=resilience,
+                           fault_plan=plan, resilience=resilience, spec=spec,
                            audit=args.audit)
 
     rng = np.random.default_rng(args.seed)
@@ -380,6 +368,14 @@ def main(argv=None) -> None:
                   f"VIOLATION(S)")
             for v in verdict.get("violations", []):
                 print(f"  ! {v}")
+    if spec is not None:
+        drafted = sum(o.drafted_tokens for o in server.runtime.outcomes)
+        accepted = sum(o.accepted_tokens for o in server.runtime.outcomes)
+        spun = sum(o.drafted_tokens > 0 for o in server.runtime.outcomes)
+        rate = accepted / drafted if drafted else 0.0
+        print(f"speculation: {spun}/{len(results)} requests drafted on "
+              f"{spec.draft_tier} | {accepted}/{drafted} draft tokens "
+              f"accepted ({rate:.0%})")
     dec = sum(p.decode_tokens for p in server.pools.values())
     pre = sum(p.prefill_tokens for p in server.pools.values())
     enc = sum(p.encode_tokens for p in server.pools.values())

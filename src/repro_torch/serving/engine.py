@@ -30,9 +30,13 @@ table per slot (``ServingConfig(paged=True)``, the launcher default).
   with the JAX package's; ``inject_slot`` resumes it in a free slot of a
   compatible engine, paged or dense, without a prefill.
 
+* **Speculative decoding**: ``spec_*`` is the target's verify protocol
+  (one ``decode_chunk`` over a drafted block, then a rewind to the
+  committed frontier) and the draft's shadow slot, co-driven by the
+  cluster runtime; the committed stream is the target-only stream.
+
 ``ServingConfig(fused_steps=1)`` keeps the per-token path (one sync per
-token, one prefill per request) for parity testing. Speculative decoding
-(``spec_*``) is not in this port yet and raises, naming its ROADMAP item.
+token, one prefill per request) for parity testing.
 
 Sampling at temperature > 0 draws each slot's token from that slot's key
 alone: Gumbel-max with noise from a counter-based hash of (key, rid,
@@ -291,8 +295,6 @@ class SlotPayload:
             raise MigrationError(f"corrupt slot payload: {e!r}") from e
 
 
-_SPEC_ITEM = "ROADMAP queue 1, item 9 (speculative decoding)"
-
 # bookkeeping leaves: per slot, never paged, never stored as prefix rows
 _BOOKKEEPING = ("['pos']", "['index']")
 
@@ -427,7 +429,7 @@ class TierEngine:
         self.resumed_sessions = 0
         self.resumed_tokens = 0
         self.parks = 0
-        # speculation counters: stay 0 in this port
+        # speculation counters
         self.drafted_tokens = 0
         self.accepted_tokens = 0
         self.spec_rounds = 0
@@ -1146,32 +1148,359 @@ class TierEngine:
         if pt is not None:
             self.cache["pages"][slot] = pt
 
-    # -- speculative decoding: not ported yet -------------------------------
+    # -- cross-tier speculative decoding (draft-and-verify) -----------------
+    #
+    # The cluster runtime drives one verify loop per speculated request:
+    #
+    #   target: submit + _admit (a NORMAL slot)    draft: spec_admit_quiet
+    #   target: spec_begin (trim pages to the written frontier)
+    #   loop:   draft.spec_draft(k) -> target.spec_verify(block)
+    #           -> draft.spec_sync(committed)
+    #   target: spec_release (restore the eager full-budget reservation
+    #           before the slot returns to the fused step() path)
+    #
+    # spec_verify feeds [pending, d_1..d_k] through ONE decode_chunk with
+    # per-position logits, samples the target's OWN token at every position
+    # (the keyed draw at the position the fused path would use), commits the
+    # longest prefix on which the draft agreed plus the target's correction
+    # token, and rolls the cache back past the first mismatch (pos/index
+    # rewind before the batch-1 insert; paged: decref the speculative tail
+    # pages). The committed stream is BY CONSTRUCTION the target-only
+    # stream, so speculation changes latency, never output.
+    #
+    # The model writes its cache in place, so the draft block and the
+    # verify chunk run on a batch-1 CLONE of the slot's rows; the slot
+    # itself changes only through an explicit ``_insert_cache``.
+
+    def _spec_chunkable(self) -> None:
+        """Speculation rewinds by position: recurrent state (the
+        re-feed branch of the JAX package's ``spec_verify``) is not
+        ported."""
+        if self.cfg.family not in ("dense", "vlm", "moe"):
+            raise NotImplementedError(
+                f"speculative verify for family {self.cfg.family!r} needs "
+                f"the recurrent re-feed: ROADMAP queue 1, item 11")
+
+    def _spec_cache1(self, slot: int) -> Dict[str, Any]:
+        """Batch-1 cache holding COPIES of ``slot``'s rows (gathered
+        through the page table on paged engines): the draft block and the
+        verify chunk write into it in place, and the slot is untouched
+        until an explicit ``_insert_cache``."""
+        if self._pt is not None:
+            rows = self._gather_slot_rows(slot)
+        else:
+            rows = {name: leaf[_at(bax, slot)].clone()
+                    for name, leaf, bax in self._leaf_rows()}
+        cache1: Dict[str, Any] = {}
+        for name, (_, dtype) in self._dense_specs.items():
+            bax = self._axis_by_name[name][0]
+            _put(cache1, name, rows[name].to(dtype).unsqueeze(bax))
+        return cache1
 
     def spec_slot(self, rid: int) -> Optional[int]:
-        raise NotImplementedError(_SPEC_ITEM)
+        """Slot currently serving ``rid`` (None: queued/finished/unknown)."""
+        for i, s in enumerate(self.slots):
+            if s is not None and s.rid == rid:
+                return i
+        return None
+
+    def _spec_resize_pages(self, slot: int, rows: int) -> bool:
+        """Resize ``slot``'s page reservation to exactly cover ``rows``
+        cache rows. The verify loop grows ahead of each chunk and shrinks
+        back to the committed frontier afterwards: the decref IS the
+        rejected speculative tail's release. Only pages strictly beyond
+        the written frontier ever trim, so CoW pages shared with the
+        prefix store (always behind the frontier) are never touched.
+        Returns False when the pool cannot grow."""
+        if self._pt is None:
+            return True  # dense engine: no-op
+        need = self._page_need(min(int(rows), self.serving.max_seq))
+        have = self._slot_pages[slot]
+        if need > len(have):
+            fresh = self._reserve_pages(need - len(have))
+            if fresh is None:
+                return False
+            have.extend(fresh)
+        elif need < len(have):
+            tail = have[need:]
+            del have[need:]
+            self.pool.decref(tail)
+        row = np.zeros((self._n_pt,), np.int32)
+        row[:len(have)] = have
+        self._pt[slot] = row
+        self.cache["pages"][slot] = torch.as_tensor(row, device=self.device)
+        # allocator invariants: rejected-tail pages really came back, the
+        # table matches the reservation, and every pool page is free XOR
+        # referenced (refcount leaks fail loudly here, not at eviction)
+        assert len(self._slot_pages[slot]) == need, (
+            f"slot {slot}: reservation {len(self._slot_pages[slot])} != "
+            f"needed {need} pages")
+        self.pool.check()
+        return True
 
     def spec_admit_quiet(self, rid: int, tokens: np.ndarray, max_new: int,
-                         extras=None) -> Optional[int]:
-        raise NotImplementedError(_SPEC_ITEM)
+                         extras: Optional[Dict[str, Any]] = None
+                         ) -> Optional[int]:
+        """Admit a DRAFT-side shadow of a speculated request: a normal slot
+        (the single-job prefill of ``_admit_legacy``) admitted with the
+        streaming hooks muted: the target's hooks are the request's real
+        event stream and the runtime must not see admit/token events twice.
+        Returns the slot, or None when admission failed (no slot / no pages
+        / finished straight out of prefill), in which case no trace
+        remains."""
+        slot = self._free_slot()
+        if slot is None:
+            return None
+        job = {"rid": int(rid), "tokens": np.asarray(tokens),
+               "max_new": int(max_new), "extras": extras or {},
+               "deadline": None, "session": None, "t": time.monotonic()}
+        if self.pool is not None:
+            vis = self._prompt_prefix(job["extras"])
+            total = min(vis + len(job["tokens"]) + int(max_new),
+                        self.serving.max_seq)
+            pages = self._reserve_pages(self._page_need(total))
+            if pages is None:
+                return None
+            self._assign_pages(slot, pages)
+        hooks = (self.on_admit, self.on_token, self.on_warm, self.on_park)
+        self.on_admit = self.on_token = self.on_warm = self.on_park = None
+        try:
+            toks = job["tokens"][None]
+            batch = self._device_batch(toks, {k: np.asarray(v)[None] for k, v
+                                              in job["extras"].items()})
+            logits, cache1 = self.model.prefill(self.params, batch,
+                                                self.serving.max_seq)
+            self._insert_cache(cache1, slot)
+            prefix = self._prompt_prefix(job["extras"])
+            self._start_seq(job, slot, toks.shape[1] + prefix,
+                            logits.float().cpu().numpy()[0])
+        finally:
+            self.on_admit, self.on_token, self.on_warm, self.on_park = hooks
+        st = self.slots[slot]
+        if st is None or st.rid != rid:
+            # finished straight out of prefill (EOS / budget / cap): a
+            # draft shadow has no consumer; drop the finished record
+            self.finished = [f for f in self.finished if f.rid != rid]
+            return None
+        self.journal.append(("spec_admit", {"rid": rid, "slot": slot}))
+        return slot
 
     def spec_set_pending(self, rid: int, token: int) -> None:
-        raise NotImplementedError(_SPEC_ITEM)
+        """Overwrite the draft slot's pending (last sampled, not yet in
+        cache) token with the TARGET's: after admission and after every
+        verify round the draft continues from what the target actually
+        committed. Modulo this model's vocabulary, which may be smaller
+        than the target's."""
+        slot = self.spec_slot(rid)
+        if slot is None:
+            return
+        self.slots[slot].generated[-1] = int(token) % self.cfg.vocab_size
 
     def spec_begin(self, rid: int) -> bool:
-        raise NotImplementedError(_SPEC_ITEM)
+        """Start speculating on a target slot: trim the eager full-budget
+        page reservation down to the written frontier so verify rounds can
+        grow/shrink page-exactly. Balanced by ``spec_release``."""
+        slot = self.spec_slot(rid)
+        if slot is None:
+            return False
+        self._spec_resize_pages(slot, int(self.positions[slot]))
+        self.journal.append(("spec_begin", {"rid": rid}))
+        return True
 
     def spec_release(self, rid: int) -> None:
-        raise NotImplementedError(_SPEC_ITEM)
+        """Stop speculating: restore the slot's eager full-budget page
+        reservation (remaining decode + the pending token's row) so the
+        fused ``step()`` path can run it to completion without mid-decode
+        page faults: its writes assume the admission-time reservation."""
+        slot = self.spec_slot(rid)
+        if slot is None:
+            return
+        st = self.slots[slot]
+        total = min(int(self.positions[slot])
+                    + max(0, st.max_new - len(st.generated)) + 1,
+                    self.serving.max_seq)
+        ok = self._spec_resize_pages(slot, total)
+        # the verify loop only ever GREW past the frontier with pages it
+        # returns before anyone else allocates, so the regrow cannot starve
+        assert ok, f"spec_release could not restore rid {rid}'s reservation"
+        self.journal.append(("spec_release", {"rid": rid}))
+
+    def _spec_teff(self, needed: int) -> int:
+        return (self._context_bucket(needed) if self._ctx_buckets
+                else self.serving.max_seq)
 
     def spec_draft(self, rid: int, k: int) -> Optional[np.ndarray]:
-        raise NotImplementedError(_SPEC_ITEM)
+        """Propose ``k`` tokens for ``rid``: ``k`` decode steps on a batch-1
+        COPY of the slot's cache, sampled on the device (argmax, or the
+        slot's keyed draw) with one host sync for the block. The slot
+        itself (rows, position, generated) is not advanced: ``spec_sync``
+        does that once the target reports what it committed."""
+        slot = self.spec_slot(rid)
+        if slot is None:
+            return None
+        st = self.slots[slot]
+        p = int(self.positions[slot])
+        k = min(int(k), self.serving.max_seq - 1 - p)
+        if k <= 0:
+            return None
+        cache1 = self._spec_cache1(slot)
+        teff = self._spec_teff(p + k + 1)
+        ctx = teff if teff < self.serving.max_seq else None
+        dev = self.device
+        tok = torch.tensor([int(st.generated[-1])], dtype=torch.int32,
+                           device=dev)
+        pos = torch.tensor([p], dtype=torch.int32, device=dev)
+        if self.temp > 0:
+            key = torch.as_tensor(self._keys[slot:slot + 1].astype(np.int64),
+                                  device=dev)
+            rid_d = torch.tensor([rid], dtype=torch.int64, device=dev)
+        out = []
+        for _ in range(k):
+            logits, cache1 = self.model.decode_step(
+                self.params, cache1, {"tokens": tok[:, None],
+                                      "positions": pos}, ctx=ctx)
+            if self.temp > 0:
+                nxt = keyed_sample(logits, key, rid_d, pos, self.temp)
+            else:
+                nxt = torch.argmax(logits, dim=-1)
+            tok = nxt.to(torch.int32)
+            pos = pos + 1
+            out.append(tok)
+        self.drafted_tokens += k
+        self.journal.append(("spec_draft", {"rid": rid, "k": k}))
+        return torch.cat(out).cpu().numpy()
 
     def spec_verify(self, rid: int, draft) -> Optional[Dict[str, Any]]:
-        raise NotImplementedError(_SPEC_ITEM)
+        """Verify a draft block against this TARGET slot in one chunked
+        forward. Feeds ``[pending, d_1..d_k]`` at positions ``p..p+k``,
+        samples the target's own token at every position (row ``i`` draws
+        at position ``p + i``, the position of the token its logits
+        follow, as the fused path does, so a rejected draft never shifts
+        the stream), commits the agreeing prefix + the correction token,
+        and rolls back everything past the first mismatch. Returns the
+        round's bookkeeping, or None when the slot is gone / nothing can
+        verify."""
+        self._spec_chunkable()
+        slot = self.spec_slot(rid)
+        if slot is None:
+            return None
+        st = self.slots[slot]
+        p = int(self.positions[slot])
+        draft = [int(x) for x in np.asarray(draft).reshape(-1)]
+        k = min(len(draft), self.serving.max_seq - 1 - p)
+        if k <= 0:
+            return None
+        draft = draft[:k]
+        s = k + 1
+        while s > 1 and not self._spec_resize_pages(slot, p + s):
+            k -= 1
+            s -= 1
+            draft = draft[:k]  # pool-starved: verify a shorter block
+        if not self._spec_resize_pages(slot, p + s):
+            return None
+        dev = self.device
+        cache1 = self._spec_cache1(slot)
+        toks = np.asarray([int(st.generated[-1])] + draft, np.int32)
+        poss = p + np.arange(s, dtype=np.int32)
+        batch = {"tokens": torch.as_tensor(toks[None], device=dev),
+                 "positions": torch.as_tensor(poss[None], device=dev)}
+        teff = self._spec_teff(p + s + 1)
+        cap = self.serving.max_seq
+        logits_all, cache2 = self.model.decode_chunk(
+            self.params, cache1, batch, ctx=(teff if teff < cap else None),
+            all_logits=True)
+        logits_all = logits_all[0]  # (s, V)
+        if self.temp > 0:
+            sampled = keyed_sample(
+                logits_all, torch.as_tensor(
+                    self._keys[slot:slot + 1].astype(np.int64)).expand(s, 2),
+                torch.full((s,), rid, dtype=torch.int64),
+                torch.as_tensor(poss), self.temp)
+        else:
+            sampled = torch.argmax(logits_all, dim=-1)
+        sampled = sampled.cpu().numpy()  # the round's one host sync
+        commits: List[int] = []
+        finished = False
+        for i in range(s):
+            nxt = int(sampled[i])
+            commits.append(nxt)
+            if (nxt == self.eos_id
+                    or len(st.generated) + len(commits) >= st.max_new
+                    or p + len(commits) + 1 >= cap):
+                finished = True
+                break
+            if i < k and draft[i] != nxt:
+                break  # first mismatch: the tail is dead
+        m = len(commits)  # cache rows now valid: [pending] + accepted
+        commit_end = p + m
+        # rewind BEFORE the insert, as after a padded warm admission:
+        # rejected rows read as holes, the write index resumes at the
+        # committed frontier
+        cache2["pos"] = torch.where(cache2["pos"] < commit_end,
+                                    cache2["pos"], -1)
+        cache2["index"] = torch.full_like(cache2["index"], commit_end % cap)
+        self._insert_cache(cache2, slot)
+        self.positions[slot] = commit_end
+        self._spec_resize_pages(slot, commit_end)  # decref rejected tail
+        self.accepted_tokens += m - 1
+        self.spec_rounds += 1
+        self.last_heartbeat = time.monotonic()
+        self.journal.append(("spec_verify", {"rid": rid, "drafted": k,
+                                             "accepted": m - 1,
+                                             "rolled_back": s - m}))
+        # commit bookkeeping token-by-token with the step() stop rules:
+        # committed tokens are real decode output (counters, streaming
+        # hooks, finish); the rolled-back tail never counts toward
+        # decode_tokens or max_new
+        now = time.monotonic()
+        for j, tok in enumerate(commits, start=1):
+            if self.slots[slot] is not st:
+                break  # a callback cancelled/finished the request
+            st.generated.append(tok)
+            self.decode_tokens += 1
+            if self.on_token is not None:
+                self.on_token(st.rid, tok, now)
+            if (tok == self.eos_id or len(st.generated) >= st.max_new
+                    or p + j + 1 >= cap):
+                self._finish_slot(slot, now)
+                break
+        done = finished or self.slots[slot] is not st
+        return {"committed": commits, "accepted": m - 1, "drafted": k,
+                "rolled_back": s - m, "finished": done}
 
     def spec_sync(self, rid: int, committed: List[int]) -> bool:
-        raise NotImplementedError(_SPEC_ITEM)
+        """Draft-side absorb of one verify round: replay the target's
+        committed tokens into the draft cache in one chunk (the old pending
+        token + all but the last commit), making the final commit the new
+        pending token. The rejected tail was never installed here, so
+        nothing rewinds. Returns False when the draft cache is out of room
+        (the caller stops speculating)."""
+        self._spec_chunkable()
+        slot = self.spec_slot(rid)
+        if slot is None:
+            return False
+        st = self.slots[slot]
+        committed = [int(t) % self.cfg.vocab_size for t in committed]
+        m = len(committed)
+        if m == 0:
+            return True
+        p = int(self.positions[slot])
+        if p + m + 1 >= self.serving.max_seq:
+            return False
+        dev = self.device
+        feed = np.asarray([int(st.generated[-1])] + committed[:-1], np.int32)
+        poss = p + np.arange(m, dtype=np.int32)
+        batch = {"tokens": torch.as_tensor(feed[None], device=dev),
+                 "positions": torch.as_tensor(poss[None], device=dev)}
+        teff = self._spec_teff(p + m + 1)
+        _, cache1 = self.model.decode_chunk(
+            self.params, self._spec_cache1(slot), batch,
+            ctx=(teff if teff < self.serving.max_seq else None))
+        self._insert_cache(cache1, slot)
+        st.generated.extend(committed)
+        self.positions[slot] = p + m
+        self.journal.append(("spec_sync", {"rid": rid, "tokens": m}))
+        return True
 
     # ------------------------------------------------------------------
 

@@ -403,6 +403,7 @@ def build_engine_pools(topology, serving, dtype: str = "float32",
                        replicas: Optional[Dict[str, int]] = None,
                        transport: str = "local",
                        serving_overrides: Optional[Dict[str, object]] = None,
+                       device: str = "cuda",
                        ) -> Dict[str, EnginePool]:
     """One :class:`EnginePool` per topology tier.
 
@@ -417,6 +418,9 @@ def build_engine_pools(topology, serving, dtype: str = "float32",
     ``serving_overrides`` swaps the shared :class:`ServingConfig` per tier
     name — heterogeneous tiers rarely share slot budgets (an edge device
     admits fewer concurrent decodes than a cloud pod).
+
+    Every replica runs on ``device`` (``cuda`` by default; raises when no
+    card is present).
     """
     if transport not in ("local", "process"):
         raise ValueError(f"unknown transport {transport!r} "
@@ -428,7 +432,7 @@ def build_engine_pools(topology, serving, dtype: str = "float32",
         if transport == "process":
             trs: List = [ProcessTransport(ReplicaSpec(
                 model=tier.model, serving=sv, dtype=dtype,
-                param_seed=i, name=f"{tier.name}/{r}"))
+                param_seed=i, name=f"{tier.name}/{r}", device=str(device)))
                 for r in range(n)]
         else:
             from repro_torch.configs import reduced_config  # local: no cycle
@@ -436,7 +440,7 @@ def build_engine_pools(topology, serving, dtype: str = "float32",
             from repro_torch.serving.engine import TierEngine
 
             cfg = reduced_config(tier.model).replace(dtype=dtype)
-            model = build_model(cfg)
+            model = build_model(cfg, device=device)
             params = model.init(i)
             trs = [LocalTransport(TierEngine(model, params, sv))
                    for _ in range(n)]

@@ -92,11 +92,11 @@ def build_cluster_engines(topology: ClusterTopology,
 
 def engines_device(engines) -> torch.device:
     """The device the first engine (or pool replica) of ``engines`` runs
-    on; ``cuda`` when it cannot be read (a process-transport pool)."""
+    on: a process replica's is its ``ReplicaSpec.device``."""
     for eng in engines.values():
         if isinstance(eng, EnginePool):
             tr = eng.transports[0]
-            eng = getattr(tr, "engine", None)
+            eng = getattr(tr, "engine", None) or getattr(tr, "spec", None)
         dev = getattr(eng, "device", None)
         if dev is not None:
             return torch.device(dev)

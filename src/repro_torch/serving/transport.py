@@ -8,10 +8,11 @@ Two implementations behind the same duck-typed surface:
   is bit-identical to the pre-pool serving path (same call order, same
   engine hooks), which keeps it the parity/debug baseline.
 * :class:`ProcessTransport` — the replica runs in a worker process
-  (``multiprocessing`` *spawn* context: fork is unsafe once jax has
-  initialized). The worker rebuilds its engine deterministically from a
-  :class:`ReplicaSpec` (same reduced model, same param seed as the
-  in-process construction, so temp=0 tokens are identical), free-runs
+  (``multiprocessing`` *spawn* context: a forked child cannot use a CUDA
+  context its parent created, so each worker opens its own). The worker
+  rebuilds its engine deterministically from a :class:`ReplicaSpec` (same
+  reduced model, same param seed as the in-process construction, on the
+  spec's device, so temp=0 tokens are identical), free-runs
   ``step()`` while it has work, and streams admit/token/warm/park events,
   finished sequences and utilization stats back over a pipe. Synchronous
   operations (image encode, slot extract/inject, session ship) are
@@ -278,6 +279,9 @@ class ReplicaSpec:
     sample_temp: float = 0.0
     seed: int = 0
     name: str = "replica"
+    # where the worker builds its model; a worker asked for "cuda" on a
+    # machine with no card reports "died" (it never falls back to the CPU)
+    device: str = "cuda"
 
 
 def _prefix_hit_len(store, tokens: np.ndarray, extras_fp: bytes) -> int:
@@ -534,8 +538,6 @@ def _worker_main(conn, spec_raw: bytes) -> None:
     """Worker entry: rebuild the engine from its spec, then free-run —
     step while there is work, drain the command pipe between steps, and
     stream events / finished sequences / stats upward."""
-    import os
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     try:
         kind, spec = msg_from_bytes(spec_raw)
         assert kind == "spec"
@@ -544,7 +546,7 @@ def _worker_main(conn, spec_raw: bytes) -> None:
         from repro_torch.serving.engine import TierEngine
 
         cfg = reduced_config(spec.model).replace(dtype=spec.dtype)
-        model = build_model(cfg)
+        model = build_model(cfg, device=spec.device)
         eng = TierEngine(model, model.init(spec.param_seed),
                          spec.serving, eos_id=spec.eos_id,
                          sample_temp=spec.sample_temp, seed=spec.seed)

@@ -4,6 +4,8 @@ pools, prompts across two length buckets, a vlm request with patches,
 prefill attention ``auto`` on both sides and JAX ``pallas`` against port
 ``torch``; the port engine's snapshot/restore round trip; and which engine
 paths are live and which still raise."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -115,15 +117,20 @@ def test_engine_keeps_attn_impl(models):
 
 
 def test_unported_engine_paths_raise_with_roadmap_item(models):
-    """Speculative decoding still raises with its ROADMAP item; migration,
-    sessions and the prefix store are live (tests/test_torch_sessions.py
-    and tests/test_torch_migration.py hold them to the JAX package)."""
+    """Only speculation's recurrent re-feed (families not ported yet) still
+    raises with its ROADMAP item; speculation on this model, migration,
+    sessions and the prefix store are live (tests/test_torch_speculative.py,
+    tests/test_torch_sessions.py and tests/test_torch_migration.py hold
+    them to the JAX package)."""
     _, _, tm, tp = models
     eng = TierEngine(tm, tp, ServingConfig(max_batch=1, max_seq=64))
     with pytest.raises(MigrationError, match="holds no decode slot"):
         eng.extract_slot(0)
+    assert eng.spec_draft(0, 4) is None  # live: no slot serves rid 0
+    recurrent = TierEngine(tm, tp, ServingConfig(max_batch=1, max_seq=64))
+    recurrent.cfg = dataclasses.replace(recurrent.cfg, family="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.spec_draft(0, 4)
+        recurrent.spec_verify(0, [5])
     eng.submit(0, np.arange(4, 20, dtype=np.int32), max_new=2, session="s")
     eng.run_until_drained()
     assert eng.parks == 1 and "s" in eng.sessions

@@ -1,8 +1,9 @@
 """The port stands alone: importing it (and a bf16 slot payload's trip
-through the migration wire) loads no JAX and no ``ml_dtypes``, no module
-of it (nor chip_smoke.py) imports ``jax``, ``ml_dtypes`` or the JAX
-package, nothing builds at import, and asking for CUDA without a card
-raises instead of falling back to the CPU."""
+through the migration wire) loads no JAX and no ``ml_dtypes``, nor does a
+spawned process replica; no module of it (nor chip_smoke.py) imports
+``jax``, ``ml_dtypes`` or the JAX package, nothing builds at import, and
+asking for CUDA without a card raises instead of falling back to the CPU,
+in a worker process too."""
 import ast
 import os
 import subprocess
@@ -43,6 +44,57 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_spawned_worker_loads_no_jax():
+    """A process replica's worker imports neither ``jax`` nor the JAX
+    package. ``-X importtime`` passes on to the spawned worker, whose
+    import lines share the parent's stderr; only the worker builds a
+    model, so the transformer module's line proves its lines are there."""
+    code = ("import numpy as np\n"
+            "from repro_torch.config import ServingConfig\n"
+            "from repro_torch.serving.pool import EnginePool\n"
+            "from repro_torch.serving.transport import (ProcessTransport, "
+            "ReplicaSpec)\n"
+            "if __name__ == '__main__':\n"
+            "    tr = ProcessTransport(ReplicaSpec(model='qwen3-0.6b', "
+            "serving=ServingConfig(max_batch=1, max_seq=32), "
+            "device='cpu'))\n"
+            "    pool = EnginePool('edge', [tr])\n"
+            "    pool.submit_to(0, 0, np.arange(4, 12, dtype=np.int32), "
+            "max_new=2, extras={}, deadline=None, session=None)\n"
+            "    fins = []\n"
+            "    while not fins:\n"
+            "        fins = pool.poll()[0]\n"
+            "    pool.close()\n"
+            "    assert len(fins[0].generated) == 2\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-c", code],
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    mods = [line.rsplit("|", 1)[-1].strip()
+            for line in proc.stderr.splitlines()
+            if line.startswith("import time:")]
+    assert "repro_torch.models.transformer" in mods  # the worker's lines
+    bad = sorted({m for m in mods if m.split(".")[0] in
+                  ("jax", "jaxlib", "repro", "ml_dtypes")})
+    assert not bad, bad
+
+
+def test_cuda_worker_without_a_card_reports_died():
+    """A worker asked for "cuda" on a machine with no card reports died
+    and never builds on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.config import ServingConfig
+    from repro_torch.serving.transport import (ProcessTransport, ReplicaSpec,
+                                               TransportError)
+
+    with pytest.raises(TransportError, match="no CUDA device"):
+        ProcessTransport(ReplicaSpec(
+            model="qwen3-0.6b", serving=ServingConfig(max_batch=1, max_seq=32),
+            name="edge/cuda"), start_timeout_s=60.0)
 
 
 def _imports(path: Path):

@@ -1,8 +1,8 @@
 """The port's control plane and live front end against the JAX package's:
 scheduler decisions and scores on one request stream, ClusterServer routes
 and tokens on edge-cloud with converted weights, and the launcher on the
-CPU: its warm-serving and migration flags run to their summary lines, and
-the flags whose paths are not ported exit naming their ROADMAP item."""
+CPU: its warm-serving, migration, speculation and process-replica flags
+run to their summary lines."""
 import dataclasses
 
 import numpy as np
@@ -116,9 +116,20 @@ def test_launcher_runs_warm_and_migration_flags_on_cpu(capsys, flag,
 
 
 @pytest.mark.parametrize("flag", [
-    ["--speculate", "edge:cloud"], ["--transport", "process"]])
-def test_launcher_refuses_unported_flags(flag):
+    (["--speculate", "edge:cloud", "--draft-k", "4"],
+     ("speculative decoding: edge drafts k=4", "speculation: ")),
+    (["--replicas", "edge=2", "--transport", "process"],
+     ("replicas: cloudx1 edgex2 | transport process", "  replicas[edge]: "))])
+def test_launcher_refuses_unported_flags(capsys, flag):
+    """The launcher refuses no flag any more: speculation and process
+    replicas, the last two paths that exited naming their ROADMAP item,
+    run on the CPU to their summary lines."""
     from repro_torch.launch import serve
 
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        serve.main(["--device", "cpu", *flag])
+    flags, lines = flag
+    serve.main(["--device", "cpu", "--requests", "4", "--max-new", "4",
+                *flags])
+    out = capsys.readouterr().out
+    assert "ROADMAP" not in out and "served 4 requests" in out
+    for line in lines:
+        assert line in out

@@ -15,14 +15,18 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      context-bucket view, a non-causal case and non-contiguous q (decode
      also at T = 1, 33, 97, 300 and 4096, pages of 16 and 64, one live
      split among masked ones, a forced single split, and dense at B=1,
-     the draft block's batch); time the
+     the draft block's batch), and at the zoo's other attention shapes
+     (hd 96 32/32, hd 192 96/8, hd 256 16/1 with a wrapped ring of 2048
+     rows under window 2048 and flash at S=2500 under that window, hd 128
+     64/4, the small hd at group 16); time the
      kernel, the plain version and, where one PyTorch call computes the same
      function, that call (the port never calls it). Decode is timed as the
      decode loop meets it: launches rotate over a stacked cache larger than
      the L2, the device time per call comes from a replayed CUDA graph
      (which proves the kernel can be captured; its outputs must equal eager
      calls), with SDPA timed the same way in turns and the eager wall per
-     call beside it, at T=384 and T=4096;
+     call beside it, at T=384 and T=4096, and at phi-3-vision's,
+     recurrentgemma's and qwen3-moe's decode and prefill shapes;
   4. at full width and depth (qwen2-vl-2b edge, qwen2.5-vl-7b cloud, bf16,
      random weights from a seed): one prefill batch of the serving shapes
      through attn_impl "auto" and "cuda" on the same weights (logit
@@ -69,6 +73,22 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      commits the target's; (c) two spawned edge
      replicas on "cuda" give the tokens of local replicas, and a killed
      worker's rid is rescued by its sibling;
+  10. the recurrent families: (a) recurrentgemma-9b at full width and
+     depth (bf16, random weights): the 3000-token prompt's prefill logits
+     under attn_impl "cuda" against "auto", then three requests (64- and
+     200-token prompts with 32 new tokens, the 3000-token one with 64) on a
+     TierEngine under "cuda"; fails unless the flash kernel and the dense
+     decode kernel launched at hd 256, group 16 (window 2048, the ring
+     wrapped); (b) mamba2-2.7b at full width and depth, four requests of 32
+     new tokens, no attention kernel launched; (c) reduced f32 hybrid and
+     ssm engines on the card (kernels) decode the tokens of the same
+     weights on the CPU (plain versions), fused and per token, paged and
+     dense, and a resumed session and speculative drafts (perfect,
+     garbage, partial) commit the fused tokens;
+  11. phi-3-vision-4.2b at full width and depth (hd 96, MHA, 576 patches),
+     three requests of the launcher's mix through ClusterServer on a paged
+     pool under "cuda"; fails unless both attention kernels launched at
+     hd 96;
   7. ``python -m repro_torch.launch.serve --requests 4 --max-new 4``, then
      with ``--sessions 2 --turns 2 --prefix-cache-mb 64 --migrate``, which
      must print its ``sessions:`` line (phase 8 (d)), with ``--speculate
@@ -77,7 +97,10 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      phase 9 (d)). Phase 7 runs last.
 
 The line before the last is the kernels' JSON record (launches: phases 4,
-5, 8 and 9 together); the last line is ``{"ok": true, "device": {...}}``.
+5, 8, 9, 10 and 11 together; each attention kernel's zoo shapes timed
+under "shapes", and every (dtype, hd, group) held in phase 3 with its worst
+error under "instantiations"); the last line is ``{"ok": true, "device":
+{...}}``.
 
     python3 chip_smoke.py                 # everything (one GPU)
     python3 chip_smoke.py --phases 1,2,3  # a subset, for debugging
@@ -400,11 +423,15 @@ KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def _decode_case(b, h, kh, hd, t_cache, t_ctx, dtype, gen, *, fill=None,
-                 dead_slot=False, window=None, live=None, layers=0):
+                 dead_slot=False, window=None, live=None, layers=0,
+                 ring=None):
     """Dense-cache inputs: k/v (B, t_cache, K, hd), attended view t_ctx.
     ``live=(lo, hi)``: only rows lo..hi-1 hold positions (0..), every other
-    entry is empty. ``layers``: k/v are layer 0 of a stacked cache
-    (2, layers, B, t_cache, K, hd) of k and v, returned as the last item."""
+    entry is empty. ``ring=last``: a wrapped ring of t_cache rows (the
+    hybrid family's window cache), position p at row p % t_cache for the
+    t_cache positions up to ``last``, the query at ``last``. ``layers``: k/v
+    are layer 0 of a stacked cache (2, layers, B, t_cache, K, hd) of k and
+    v, returned as the last item."""
     import torch
 
     q = _rand((b, 1, h, hd), dtype, gen)
@@ -412,7 +439,12 @@ def _decode_case(b, h, kh, hd, t_cache, t_ctx, dtype, gen, *, fill=None,
     k, v = stack[0, 0], stack[1, 0]
     fill = t_ctx - 3 if fill is None else fill
     pos = torch.full((b, t_cache), -1, dtype=torch.int32, device="cuda")
-    if live is not None:
+    if ring is not None:
+        p = torch.arange(ring - t_cache + 1, ring + 1, dtype=torch.int32,
+                         device="cuda")
+        pos[:, p.long() % t_cache] = p
+        fill = ring + 1
+    elif live is not None:
         lo, hi = live
         pos[:, lo:hi] = torch.arange(hi - lo, dtype=torch.int32, device="cuda")
         fill = hi - lo
@@ -480,6 +512,74 @@ def _hold(label, got, want, dtype, v_rows=None):
     return err
 
 
+# The attention shapes of the model zoo beyond the serving pair's hd 128 /
+# group <= 8: phi-3-vision (hd 96, MHA), nemotron-4 (hd 192, group 12),
+# recurrentgemma (hd 256, MQA group 16, window 2048 over a ring of 2048
+# rows), qwen3-moe (hd 128, group 16), and the small hd at group 16.
+ZOO_DECODE_DENSE = [
+    # (label, b, h, kh, hd, t_cache, t_ctx, kwargs)
+    ("phi-3-vision hd96 32/32", 4, 32, 32, 96, 1024, 640, {}),
+    ("phi-3-vision hd96 all-masked slot", 2, 32, 32, 96, 256, 200,
+     {"dead_slot": True}),
+    ("nemotron hd192 96/8", 2, 96, 8, 192, 256, 200, {}),
+    ("recurrentgemma hd256 16/1", 4, 16, 1, 256, 512, 384, {}),
+    ("recurrentgemma hd256 wrapped ring 2048, window 2048", 4, 16, 1, 256,
+     2048, 2048, {"ring": 3063, "window": 2048}),
+    ("recurrentgemma hd256 ring, one split", 2, 16, 1, 256, 2048, 2048,
+     {"ring": 2500, "window": 2048, "split_rows": 4096}),
+    ("qwen3-moe hd128 64/4", 4, 64, 4, 128, 512, 384, {}),
+    ("hd256 4/1 window 48", 2, 4, 1, 256, 128, 100, {"window": 48}),
+    ("hd32 16/1", 2, 16, 1, 32, 64, 48, {}),
+    ("hd64 32/2", 2, 32, 2, 64, 128, 97, {}),
+    ("hd192 12/1 T=1", 2, 12, 1, 192, 16, 1, {"fill": 1}),
+]
+ZOO_DECODE_PAGED = [
+    # (label, b, h, kh, hd, page, n_pt, t_ctx, kwargs)
+    ("phi-3-vision hd96 32/32", 4, 32, 32, 96, 64, 16, 640, {}),
+    ("phi-3-vision hd96 partial page + dead slot", 2, 32, 32, 96, 64, 4,
+     200, {"dead_slot": True}),
+    ("nemotron hd192 96/8", 2, 96, 8, 192, 64, 4, 200, {}),
+    ("recurrentgemma hd256 16/1 window 2048", 4, 16, 1, 256, 64, 40, 2500,
+     {"window": 2048}),
+    ("qwen3-moe hd128 64/4", 4, 64, 4, 128, 64, 8, 384, {}),
+    ("hd32 16/1 page 16", 2, 16, 1, 32, 16, 4, 48, {}),
+]
+# timed, B=4: (label, h, kh, hd, T, window)
+ZOO_DECODE_TIMED = [
+    ("phi-3-vision", 32, 32, 96, 640, None),
+    ("recurrentgemma ring", 16, 1, 256, 2048, 2048),
+    ("qwen3-moe", 64, 4, 128, 384, None),
+]
+ZOO_FLASH = [
+    # (label, b, s, h, kh, hd, causal, window, q layout)
+    ("phi-3-vision hd96 32/32", 2, 640, 32, 32, 96, True, None, "contiguous"),
+    ("hd96 window 64 ragged S=97", 2, 97, 4, 4, 96, True, 64, "contiguous"),
+    ("nemotron hd192 96/8", 1, 256, 96, 8, 192, True, None, "contiguous"),
+    ("recurrentgemma hd256 16/1", 1, 320, 16, 1, 256, True, None,
+     "contiguous"),
+    ("recurrentgemma hd256 S=2500 window 2048", 1, 2500, 16, 1, 256, True,
+     2048, "contiguous"),
+    ("hd256 q (B,H,S,hd) view", 2, 130, 16, 1, 256, True, None, "bhsd"),
+    ("qwen3-moe hd128 64/4", 2, 320, 64, 4, 128, True, None, "contiguous"),
+]
+# timed: (label, b, s, h, kh, hd, window)
+ZOO_FLASH_TIMED = [
+    ("phi-3-vision", 4, 640, 32, 32, 96, None),
+    ("recurrentgemma", 1, 3000, 16, 1, 256, 2048),
+]
+
+
+def _held(held, dtype, hd, group, err):
+    """Keep the worst error of each (dtype, hd, group) held in phase 3."""
+    key = (str(dtype)[6:], hd, group)
+    held[key] = max(held.get(key, 0.0), err)
+
+
+def _instantiations(held):
+    return [{"dtype": d, "hd": hd, "group": g, "max_abs_err": e}
+            for (d, hd, g), e in sorted(held.items())]
+
+
 def check_decode_dense(records):
     import torch
 
@@ -518,8 +618,8 @@ def check_decode_dense(records):
         ("cloud B=1 draft T=512", 1, 28, 4, 128, 512, 512, {}),
         ("edge B=1 draft T=384", 1, 12, 2, 128, 512, 384, {}),
         ("edge B=1 draft T=512", 1, 12, 2, 128, 512, 512, {}),
-    ]
-    worst = 0.0
+    ] + ZOO_DECODE_DENSE
+    worst, held = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
         for label, b, h, kh, hd, tc, tx, kw in cases:
             kw = dict(kw)
@@ -533,11 +633,16 @@ def check_decode_dense(records):
             torch.cuda.synchronize()
             err = _hold(f"decode_attention {label}", got, want, dtype,
                         vv[b - 1] if kw.get("dead_slot") else None)
+            _held(held, dtype, hd, h // kh, err)
             if label == "cloud" and dtype == torch.bfloat16:
                 worst = err
     for t in (384, 4096):
         for label, h, kh in (("edge", 12, 2), ("cloud", 28, 4)):
             time_decode(records, False, label, h, kh, t, worst, gen)
+    for label, h, kh, hd, t, window in ZOO_DECODE_TIMED:
+        time_decode(records, False, label, h, kh, t, worst, gen, hd=hd,
+                    window=window, sweep=(32, 64, 128, 256, 512))
+    records["decode_attention"]["instantiations"] = _instantiations(held)
 
 
 def check_decode_paged(records):
@@ -567,8 +672,8 @@ def check_decode_paged(records):
         ("cloud T=4096 page 64", 4, 28, 4, 128, 64, 64, 4096, {}),
         ("cloud T=4096 all-masked slot", 4, 28, 4, 128, 64, 64, 4096,
          {"dead_slot": True}),
-    ]
-    worst = 0.0
+    ] + ZOO_DECODE_PAGED
+    worst, held = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
         for label, b, h, kh, hd, page, n_pt, tx, kw in cases:
             kw = dict(kw)
@@ -585,18 +690,28 @@ def check_decode_paged(records):
                     if kw.get("dead_slot") else None)
             err = _hold(f"decode_attention_paged {label}", got, want, dtype,
                         dead)
+            _held(held, dtype, hd, h // kh, err)
             if label == "cloud" and dtype == torch.bfloat16:
                 worst = err
     for t in (384, 4096):
         for label, h, kh in (("edge", 12, 2), ("cloud", 28, 4)):
             time_decode(records, True, label, h, kh, t, worst, gen)
+    for label, h, kh, hd, t, window in ZOO_DECODE_TIMED:
+        if window is None:  # the ring (hybrid) is a dense cache
+            time_decode(records, True, label, h, kh, t, worst, gen, hd=hd)
+    records["decode_attention_paged"]["instantiations"] = _instantiations(
+        held)
 
 
-def time_decode(records, paged, label, h, kh, t, worst, gen):
-    """Time one decode shape (B=4, bf16, hd 128) the way the decode loop
-    meets it: launches rotate over the layers of a stacked cache that does
-    not fit the 50 MB L2 (28 layers at the serving T=384 of 512; at T=4096
-    enough caches to pass 100 MB). Device time per call from a replayed
+def time_decode(records, paged, label, h, kh, t, worst, gen, hd=128,
+                window=None, sweep=()):
+    """Time one decode shape (B=4, bf16, hd 128 unless given) the way the
+    decode loop meets it: launches rotate over the layers of a stacked cache
+    that does not fit the 50 MB L2 (28 layers at the serving T=384 of 512;
+    otherwise enough caches to pass 100 MB). The zoo's shapes (other hd and
+    groups) are added to the kernel's record under "shapes". ``sweep``:
+    context rows per split to time the dense kernel at besides the
+    wrapper's choice. Device time per call from a replayed
     CUDA graph (the kernel, then SDPA on the same dense rows, in turns:
     kernel, SDPA, SDPA, kernel), the eager wall per call beside it; the
     graph's outputs must equal eager calls bitwise."""
@@ -606,7 +721,7 @@ def time_decode(records, paged, label, h, kh, t, worst, gen):
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda, decode_attention_paged_cuda,
         decode_attention_paged_plain, decode_attention_plain)
-    b, hd, dt = 4, 128, torch.bfloat16
+    b, dt = 4, torch.bfloat16
     layer_bytes = 2 * b * t * kh * hd * 2
     layers = 28 if t <= 512 else -(-100_000_000 // layer_bytes) + 1
     if paged:
@@ -630,12 +745,17 @@ def time_decode(records, paged, label, h, kh, t, worst, gen):
                                                   gen, layers=layers)
         pos = pos[:, :t]
         kv = [(stack[0, i][:, :t], stack[1, i][:, :t]) for i in range(layers)]
-        fns = [lambda i=i: decode_attention_cuda(q, *kv[i], pq, pos)
+        fns = [lambda i=i: decode_attention_cuda(q, *kv[i], pq, pos,
+                                                 window=window)
                for i in range(layers)]
-        plain = [lambda i=i: decode_attention_plain(q, *kv[i], pq, pos)
+        plain = [lambda i=i: decode_attention_plain(q, *kv[i], pq, pos,
+                                                    window=window)
                  for i in range(layers)]
     dd = pq[:, None] - pos
-    mask = ((pos >= 0) & (dd >= 0))[:, None, None, :]
+    ok = (pos >= 0) & (dd >= 0)
+    if window is not None:
+        ok = ok & (dd < window)
+    mask = ok[:, None, None, :]
     qs = q.transpose(1, 2)
     sdpa = [lambda i=i: F.scaled_dot_product_attention(
         qs, kv[i][0].transpose(1, 2), kv[i][1].transpose(1, 2),
@@ -649,14 +769,31 @@ def time_decode(records, paged, label, h, kh, t, worst, gen):
         if not torch.equal(outs[i], fn()):
             fail(f"decode {label} T={t}: graph replay differs from eager")
     dev, lib = (k1 + k2) / 2, (s1 + s2) / 2
+    swept = {}
+    for rows in sweep:
+        swept[rows] = graph_time_ms([lambda i=i: decode_attention_cuda(
+            q, *kv[i], pq, pos, window=window, split_rows=rows)
+            for i in range(layers)], replays)[0]
+    if swept:
+        print(f"  decode_attention {label} hd {hd} group {h // kh} T={t}: "
+              f"device us by rows a split: "
+              + ", ".join(f"{r}: {ms * 1e3:.2f}" for r, ms in swept.items()))
     eager = eager_time_ms(fns, max(2, -(-100 // layers)))
-    plain_ms = (graph_time_ms(plain, 2)[0] if t <= 512 else None)
+    plain_ms = (graph_time_ms(plain, 2)[0] if t <= 2048 else None)
     nbytes = 2 * b * t * kh * hd * 2 + 2 * b * h * hd * 2 + b * t * 4
     if paged:
         nbytes += pages.numel() * 4
     bd, by = bound_ms(nbytes, 4.0 * b * h * t * hd, "bfloat16")
     name = "decode_attention_paged" if paged else "decode_attention"
-    print(f"  {name} {label} B=4 T={t} bf16 ({layers} layers rotated): "
+    if hd != 128 or h // kh > 8:
+        records[name].setdefault("shapes", []).append({
+            "shape": f"{label} B=4 T={t} hd {hd} group {h // kh}"
+                     + (f" window {window}" if window else ""),
+            "device_ms": dev, "eager_ms": eager, "plain_ms": plain_ms,
+            "bound_ms": bd, "bound_by": by, "library_ms": lib,
+            "share_of_bound": bd / dev})
+    print(f"  {name} {label} B=4 T={t} hd {hd} bf16 ({layers} layers "
+          f"rotated): "
           f"device {dev * 1e3:.2f} us ({k1 * 1e3:.2f}, {k2 * 1e3:.2f}), "
           f"eager wall {eager * 1e3:.2f} us, sdpa device {lib * 1e3:.2f} us "
           f"({s1 * 1e3:.2f}, {s2 * 1e3:.2f})"
@@ -723,8 +860,8 @@ def check_flash(records):
         # a query tile
         ("window 40", 2, 320, 12, 2, 128, True, 40, "contiguous"),
         ("cloud R=1 S=4096", 1, 4096, 28, 4, 128, True, None, "contiguous"),
-    ]
-    worst = 0.0
+    ] + ZOO_FLASH
+    worst, held = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
         for label, b, s, h, kh, hd, causal, window, layout in cases:
             q, k, v = _flash_case(b, s, h, kh, hd, dtype, gen, layout)
@@ -736,6 +873,7 @@ def check_flash(records):
             t = KERNEL_TOL[str(dtype)[6:]]
             if not torch.allclose(got.float(), want.float(), rtol=t, atol=t):
                 fail(f"flash_attention {label} {dtype}: max |err| {err}")
+            _held(held, dtype, hd, h // kh, err)
             if label == "cloud" and dtype == torch.bfloat16:
                 worst = err
             msg = (f"  flash_attention {label} {str(dtype)[6:]}: max |err| "
@@ -751,9 +889,10 @@ def check_flash(records):
                          f"loop: max |err| {terr}")
                 msg += f"; against its tile loop {terr:.3g} (tol {TILED_TOL})"
             print(msg)
-    print(f"  flash_attention resident blocks an SM, hd 128: bf16 "
-          f"{blocks_per_sm(torch.bfloat16, 128)}, f32 "
-          f"{blocks_per_sm(torch.float32, 128)}")
+    for hd in (32, 64, 96, 128, 192, 256):
+        print(f"  flash_attention resident blocks an SM, hd {hd}: bf16 "
+              f"{blocks_per_sm(torch.bfloat16, hd)}, f32 "
+              f"{blocks_per_sm(torch.float32, hd)}")
     shapes = [time_flash(label, b, s, h, kh, gen)
               for label, b, s, h, kh in (("edge", 4, 320, 12, 2),
                                          ("cloud", 4, 320, 28, 4),
@@ -769,13 +908,15 @@ def check_flash(records):
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "device_ms": main["device_ms"], "eager_ms": main["eager_ms"],
-        "shapes": shapes}
+        "shapes": shapes + [time_flash(lb, b, s, h, kh, gen, hd=hd, window=w)
+                            for lb, b, s, h, kh, hd, w in ZOO_FLASH_TIMED],
+        "instantiations": _instantiations(held)}
 
 
-def time_flash(label, b, s, h, kh, gen):
-    """Time one prefill shape (bf16, hd 128, causal) the way a prefill
-    meets it: launches rotate over 28 layers' distinct (q, k, v), more bytes
-    than the 50 MB L2 holds. Device time per call from a replayed CUDA graph
+def time_flash(label, b, s, h, kh, gen, hd=128, window=None):
+    """Time one prefill shape (bf16, hd 128 unless given, causal, optional
+    window) the way a prefill meets it: launches rotate over 28 layers'
+    distinct (q, k, v), more bytes than the 50 MB L2 holds. Device time per call from a replayed CUDA graph
     of one rotation (the kernel, then SDPA on the same tensors, in turns:
     kernel, SDPA, SDPA, kernel), the eager wall per call beside it; the
     graph's outputs must equal eager calls bitwise. The plain version is
@@ -785,15 +926,25 @@ def time_flash(label, b, s, h, kh, gen):
 
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
-    hd, dt, layers = 128, torch.bfloat16, 28
+    dt, layers = torch.bfloat16, 28
     qs = _rand((layers, b, s, h, hd), dt, gen)
     kvs = _rand((layers, 2, b, s, kh, hd), dt, gen)
-    fns = [lambda i=i: flash_attention_cuda(qs[i], kvs[i, 0], kvs[i, 1])
+    fns = [lambda i=i: flash_attention_cuda(qs[i], kvs[i, 0], kvs[i, 1],
+                                            window=window)
            for i in range(layers)]
-    sdpa = [lambda i=i: F.scaled_dot_product_attention(
-        qs[i].transpose(1, 2), kvs[i, 0].transpose(1, 2),
-        kvs[i, 1].transpose(1, 2), is_causal=True, enable_gqa=True)
-        for i in range(layers)]
+    if window is None:
+        sdpa = [lambda i=i: F.scaled_dot_product_attention(
+            qs[i].transpose(1, 2), kvs[i, 0].transpose(1, 2),
+            kvs[i, 1].transpose(1, 2), is_causal=True, enable_gqa=True)
+            for i in range(layers)]
+    else:
+        r = torch.arange(s, device="cuda")
+        dd = r[:, None] - r[None]
+        wmask = (dd >= 0) & (dd < window)
+        sdpa = [lambda i=i: F.scaled_dot_product_attention(
+            qs[i].transpose(1, 2), kvs[i, 0].transpose(1, 2),
+            kvs[i, 1].transpose(1, 2), attn_mask=wmask, enable_gqa=True)
+            for i in range(layers)]
     replays = max(10, -(-280 // layers))
     k1, outs = graph_time_ms(fns, replays)
     s1, _ = graph_time_ms(sdpa, replays)
@@ -806,15 +957,20 @@ def time_flash(label, b, s, h, kh, gen):
     dev, lib = (k1 + k2) / 2, (s1 + s2) / 2
     eager = eager_time_ms(fns, max(2, -(-100 // layers)))
     plain_ms = None
-    if s <= 512:
+    if s <= 1024:
         plain = [lambda i=i: flash_attention_plain(qs[i], kvs[i, 0],
-                                                   kvs[i, 1])
+                                                   kvs[i, 1], window=window)
                  for i in range(layers)]
         plain_ms = graph_time_ms(plain, 2)[0]
     nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
-    flops = 4.0 * b * h * hd * s * (s + 1) / 2  # causal pairs only
+    # the pairs this run attends: causal, within the window if any
+    pairs = (s * (s + 1) / 2 if window is None else
+             sum(min(r + 1, window) for r in range(s)))
+    flops = 4.0 * b * h * hd * pairs
     bd, by = bound_ms(nbytes, flops, "bfloat16")
-    shape = f"{label} R={b} S={s}"
+    shape = (f"{label} R={b} S={s}" + (f" hd {hd}" if hd != 128 else "")
+             + (f" group {h // kh}" if h // kh > 8 or hd != 128 else "")
+             + (f" window {window}" if window else ""))
     print(f"  flash_attention {shape} bf16 ({layers} layers rotated): device "
           f"{dev * 1e3:.2f} us ({k1 * 1e3:.2f}, {k2 * 1e3:.2f}), eager wall "
           f"{eager * 1e3:.2f} us, sdpa device {lib * 1e3:.2f} us "
@@ -1864,6 +2020,313 @@ def phase_spec(records, built):
     process_replicas_cuda()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the recurrent families; phase 11: the attention zoo at hd 96
+# ---------------------------------------------------------------------------
+
+
+def _serve_direct(eng, prompts, label):
+    """Serve ``(tokens, max_new)`` prompts on one engine, the launch counts
+    reset just before; fail unless every request finishes with its tokens
+    in the vocabulary. Returns (tokens by rid, counts, counts by shape,
+    wall seconds)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for rid, (toks, max_new) in enumerate(prompts):
+        eng.submit(rid, toks, max_new=max_new)
+    done = {s.rid: list(s.generated) for s in eng.run_until_drained()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, by_shape = ops.launches(), ops.launches_by_shape()
+    vocab = eng.cfg.vocab_size
+    if sorted(done) != list(range(len(prompts))):
+        fail(f"{label}: finished {sorted(done)} of {len(prompts)}")
+    for rid, (_, max_new) in enumerate(prompts):
+        toks = done[rid]
+        if not toks or not all(0 <= t < vocab for t in toks):
+            fail(f"{label}: rid {rid} tokens out of the vocabulary: {toks}")
+        if len(toks) != max_new and toks[-1] != eng.eos_id:
+            fail(f"{label}: rid {rid} stopped early without EOS")
+    return done, counts, by_shape, wall
+
+
+def recurrentgemma_full_width(records):
+    """Phase 10 (a): recurrentgemma-9b at full width and depth (38 layers:
+    12 x (rglru, rglru, local attention) + 2 rglru; d 4096, 16 query heads
+    on 1 KV head of 256, window 2048, vocab 256000), bf16, random weights
+    drawn on the card; the 3000-token prompt's prefill logits under
+    attn_impl "cuda" (the flash kernel, window 2048) against "auto"
+    ("local", plain PyTorch); then three requests through a TierEngine
+    under "cuda" (64-200-token prompts with 32 new tokens and the
+    3000-token prompt with 64: its ring of 2048 rows wraps in prefill and
+    again in decode). Fails unless the flash kernel and the dense decode
+    kernel launched at hd 256, group 16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import ServingConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import TierEngine
+
+    cfg = get_config("recurrentgemma-9b").replace(dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = build_model(cfg, attn_impl="cuda", device="cuda")
+    params = model.init(0)
+    auto = build_model(cfg, attn_impl="auto", device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"  recurrentgemma-9b: {n_params / 1e9:.3f} B parameters drawn on "
+          f"the card in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(10)
+    long = rng.integers(4, cfg.vocab_size, 3000).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(long[None], device="cuda")}
+    logits, walls = {}, {"auto": [], "cuda": []}
+    for m in (auto, model):
+        m.prefill(params, batch, 4096)  # warm-up
+    for name in ("auto", "cuda", "cuda", "auto"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, _ = (auto if name == "auto" else model).prefill(params, batch,
+                                                             4096)
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t1)
+        logits[name] = out.float()
+    if not all(bool(torch.isfinite(x).all()) for x in logits.values()):
+        fail("recurrentgemma prefill logits are not finite")
+    diff = float((logits["auto"] - logits["cuda"]).abs().max())
+    agree = bool(logits["auto"].argmax(-1) == logits["cuda"].argmax(-1))
+    print(f"  recurrentgemma prefill S=3000: max |logit auto - cuda| "
+          f"{diff:.4g} (of max |logit| {float(logits['auto'].abs().max()):.4g})"
+          f", argmax {'agrees' if agree else 'DIFFERS'} | wall, median of 2 "
+          f"in turns: auto (local) {statistics.median(walls['auto']) * 1e3:.1f}"
+          f" ms, cuda (flash kernel) "
+          f"{statistics.median(walls['cuda']) * 1e3:.1f} ms")
+    del auto
+    sv = ServingConfig(max_batch=4, max_seq=4096, paged=True,
+                       kv_page_size=64, fused_steps=8)
+    eng = TierEngine(model, params, sv)
+    prompts = [(rng.integers(4, cfg.vocab_size, n).astype(np.int32), m)
+               for n, m in ((64, 32), (200, 32), (3000, 64))]
+    done, counts, by_shape, wall = _serve_direct(eng, prompts,
+                                                 "recurrentgemma serve")
+    key = (cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads)
+    for name in ("flash_attention", "decode_attention"):
+        if by_shape[name].get(key, 0) <= 0:
+            fail(f"recurrentgemma serve never launched {name} at (hd, "
+                 f"group) {key}: {by_shape[name]}")
+        records[name]["launches"] += counts[name]
+    ring = eng.cache["pos"].shape[1]
+    print(f"  recurrentgemma serve (paged pool, recurrent state dense, "
+          f"{eng._slot_page_charge} pages a slot): 3 requests in {wall:.3f}s,"
+          f" {eng.decode_tokens} decode / {eng.prefill_tokens} prompt tokens,"
+          f" ring of {ring} rows (the 3000-token prompt's wrapped), launches "
+          f"{counts} by (hd, group) {by_shape} | peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    for rid in sorted(done):
+        print(f"    rid={rid} prompt={len(prompts[rid][0])} "
+              f"tokens={done[rid][:6]}...")
+    del eng, model, params
+    torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def mamba2_full_width(records):
+    """Phase 10 (b): mamba2-2.7b at full width and depth (64 Mamba-2 layers,
+    d 2560, 80 SSD heads of 64, state 128, vocab 50280), bf16, random
+    weights on the card, four requests of 32 new tokens. The family has no
+    attention: the run fails if it launched an attention kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import ServingConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import TierEngine
+
+    cfg = get_config("mamba2-2.7b").replace(dtype="bfloat16")
+    model = build_model(cfg, attn_impl="cuda", device="cuda")
+    params = model.init(0)
+    n_params = sum(p.numel() for p in _leaves(params))
+    sv = ServingConfig(max_batch=4, max_seq=1024, paged=True,
+                       kv_page_size=64, fused_steps=8)
+    eng = TierEngine(model, params, sv)
+    rng = np.random.default_rng(11)
+    prompts = [(rng.integers(4, cfg.vocab_size, n).astype(np.int32), 32)
+               for n in (48, 130, 257, 400)]
+    done, counts, _, wall = _serve_direct(eng, prompts, "mamba2 serve")
+    attn = {k: v for k, v in counts.items() if k != "image_stats"}
+    if any(attn.values()):
+        fail(f"mamba2 (no attention) launched an attention kernel: {attn}")
+    print(f"  mamba2-2.7b ({n_params / 1e9:.3f} B parameters, bf16): 4 "
+          f"requests in {wall:.3f}s, {eng.decode_tokens} decode / "
+          f"{eng.prefill_tokens} prompt tokens; it launches no attention "
+          f"kernel (launches {counts}) | peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del eng, model, params
+    torch.cuda.empty_cache()
+
+
+def recurrent_reduced_parity():
+    """Phase 10 (c): reduced f32 hybrid and ssm engines on the card with the
+    kernels (attn_impl and decode_impl "cuda") against the same weights on
+    the CPU with the plain versions ("torch"): equal tokens, fused and per
+    token, paged and dense (hybrid prompts past its window of 32). On the
+    card, a resumed session and a self-draft speculative round (a garbage
+    block: the recurrent re-feed) commit the fused tokens."""
+    import numpy as np
+
+    from repro_torch.config import ServingConfig
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import TierEngine
+
+    for arch in ("recurrentgemma-9b", "mamba2-2.7b"):
+        cfg = reduced_config(arch).replace(dtype="float32")
+        cpu = build_model(cfg, attn_impl="torch", device="cpu")
+        gpu = build_model(cfg, attn_impl="cuda", device="cuda")
+        p_cpu = cpu.init(0)
+        p_gpu = _tree_to(p_cpu, "cuda")
+        rng = np.random.default_rng(12)
+        prompts = [rng.integers(4, cfg.vocab_size, n).astype(np.int32)
+                   for n in (9, 21, 40, 50, 90)]
+
+        def engine(device, paged, fused, **kw):
+            model, params = (gpu, p_gpu) if device == "cuda" else (cpu, p_cpu)
+            return TierEngine(model, params, ServingConfig(
+                max_batch=4, max_seq=128, paged=paged, kv_page_size=16,
+                fused_steps=fused, decode_impl=device if device == "cuda"
+                else "torch", **kw), eos_id=-1)
+
+        n_tok = 0
+        for paged in (False, True):
+            for fused in (1, 8):
+                toks = {}
+                for device in ("cuda", "cpu"):
+                    eng = engine(device, paged, fused)
+                    for rid, p in enumerate(prompts):
+                        eng.submit(rid, p, max_new=12)
+                    toks[device] = {s.rid: s.generated
+                                    for s in eng.run_until_drained()}
+                if toks["cuda"] != toks["cpu"]:
+                    fail(f"reduced {arch} paged={paged} fused={fused}: card "
+                         f"{toks['cuda']} != CPU {toks['cpu']}")
+                n_tok += sum(len(t) for t in toks["cuda"].values())
+        prompt = {"tokens": prompts[2], "extras": {}}
+        for paged in (False, True):
+            ref = _alone(engine("cuda", paged, 8), prompt, 16)
+            eng = engine("cuda", paged, 8, session_cache_mb=64.0)
+            gen = _alone(eng, prompt, 6)
+            eng.finished.clear()
+            hist = np.concatenate([prompts[2], np.asarray(gen, np.int32),
+                                   prompts[0]])
+            eng.submit(1, hist, max_new=6)
+            got = {s.rid: s.generated for s in eng.run_until_drained()}[1]
+            cold = _alone(engine("cuda", paged, 8),
+                          {"tokens": hist, "extras": {}}, 6)
+            # the first turn parks only with a session id
+            if got != cold:
+                fail(f"reduced {arch} paged={paged}: second turn {got} != "
+                     f"cold {cold}")
+            eng = engine("cuda", paged, 8, session_cache_mb=64.0)
+            eng.submit(0, prompts[2], max_new=6, session="s")
+            gen = {s.rid: s.generated for s in eng.run_until_drained()}[0]
+            hist = np.concatenate([prompts[2], np.asarray(gen, np.int32),
+                                   prompts[0]])
+            eng.submit(1, hist, max_new=6, session="s")
+            got = {s.rid: s.generated for s in eng.run_until_drained()}[1]
+            if got != cold or eng.resumed_sessions != 1:
+                fail(f"reduced {arch} paged={paged}: resumed session {got} "
+                     f"!= cold {cold} (resumed {eng.resumed_sessions})")
+            v = cfg.vocab_size
+            for name, draft_for in {
+                    "garbage": lambda g: [(t + 1) % v
+                                          for t in ref[len(g):len(g) + 4]],
+                    "partial": lambda g: [t if i != 2 else (t + 1) % v
+                                          for i, t in
+                                          enumerate(ref[len(g):len(g) + 5])],
+                    "perfect": lambda g: ref[len(g):len(g) + 4]}.items():
+                eng = engine("cuda", paged, 8)
+                got = _spec_drive_target(eng, prompt, 16, draft_for)
+                if got != ref or eng.spec_rounds <= 0:
+                    fail(f"reduced {arch} paged={paged} spec {name}: {got} "
+                         f"!= fused {ref} ({eng.spec_rounds} rounds)")
+        print(f"  reduced f32 {arch}: card (kernels) == CPU (plain) on "
+              f"{n_tok} tokens, fused and per-token, paged and dense; a "
+              f"resumed session and perfect, garbage and partial "
+              f"speculative drafts commit the fused tokens")
+
+
+def _tree_to(tree, device):
+    return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
+            for k, v in tree.items()}
+
+
+def phase_recurrent(records):
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    recurrentgemma_full_width(records)
+    torch.cuda.reset_peak_memory_stats()
+    mamba2_full_width(records)
+    recurrent_reduced_parity()
+    print(f"  phase 10 wall {time.perf_counter() - t0:.1f}s")
+
+
+def phase_zoo_serve(records):
+    """Phase 11: phi-3-vision-4.2b (vlm; hd 96, 32 heads, MHA) at full width
+    and depth (32 layers, d 3072, 576 patches), bf16, random weights,
+    through ClusterServer on two engines over the same model (paged, 64-row
+    pages, attn_impl "cuda", max_seq 1024): three requests of the
+    launcher's mix, 16 new tokens. Fails unless both attention kernels
+    launched at hd 96 (and the serve's own checks: every token in the
+    vocabulary, image scores)."""
+    import torch
+
+    from repro_torch.config import ServingConfig, get_topology
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import TierEngine
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("phi-3-vision-4.2b").replace(dtype="bfloat16")
+    model = build_model(cfg, attn_impl="cuda", device="cuda")
+    params = model.init(0)
+    sv = ServingConfig(max_batch=4, max_seq=1024, paged=True,
+                       kv_page_size=64, fused_steps=8)
+    engines = {tier: TierEngine(model, params, sv)
+               for tier in ("edge", "cloud")}
+    counts = serve(engines, get_topology("edge-cloud"), 3, 16,
+                   "phi-3-vision full width, paged, attn cuda")
+    by_shape = ops.launches_by_shape()
+    key = (cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads)
+    for name in ("flash_attention", "decode_attention_paged"):
+        if by_shape[name].get(key, 0) <= 0:
+            fail(f"phi-3-vision serve never launched {name} at (hd, group) "
+                 f"{key}: {by_shape[name]}")
+        records[name]["launches"] += counts[name]
+    records["image_stats"]["launches"] += counts["image_stats"]
+    print(f"  phi-3-vision: launches by (hd, group) {by_shape}; phase 11 "
+          f"wall {time.perf_counter() - t0:.1f}s")
+    del engines, model, params
+    torch.cuda.empty_cache()
+
+
 def phase_launcher():
     """The launcher's default run, then its warm-serving and migration
     flags (phase 8 (d)), which must print the ``sessions:`` line, then
@@ -1901,7 +2364,7 @@ def phase_launcher():
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1953,6 +2416,16 @@ def main() -> None:
               "cuda")
         phase_spec(records, built)
     del built
+    if phases & {10, 11} and 3 not in phases:
+        fail("phases 10 and 11 record launches into phase 3's kernel "
+             "records")
+    if 10 in phases:
+        print("phase 10: the recurrent families (full-width recurrentgemma-9b"
+              " and mamba2-2.7b, reduced parity)")
+        phase_recurrent(records)
+    if 11 in phases:
+        print("phase 11: full-width phi-3-vision-4.2b serve (hd 96)")
+        phase_zoo_serve(records)
     if 7 in phases:
         print("phase 7: launcher")
         phase_launcher()
@@ -1962,7 +2435,8 @@ def main() -> None:
             rec.setdefault("launches", 0)
         order = ("name", "route", "source", "replaces", "launches",
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "device_ms", "eager_ms", "shapes")
+                 "library_ms", "device_ms", "eager_ms", "shapes",
+                 "instantiations")
         print(json.dumps({"kernels": [{k: rec[k] for k in order if k in rec}
                                       for rec in records.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

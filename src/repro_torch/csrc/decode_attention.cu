@@ -24,9 +24,13 @@
 // and few instructions between them:
 //
 // * Split pass, grid (splits, K, B), 4 warps. A block covers the rows
-//   [s*R, min((s+1)*R, T)) of one (slot, KV head) for all G <= 8 query heads
-//   of the group, so each K/V row crosses device memory once. The wrapper
-//   picks R (a power of two >= 32) so that the grid fills the SMs.
+//   [s*R, min((s+1)*R, T)) of one (slot, KV head) for all G <= 16 query
+//   heads of the group, so each K/V row crosses device memory once. The
+//   wrapper picks R (a power of two >= 32) so that the grid fills the SMs.
+// * Shapes: head dims 32, 64, 96, 128, 192 and 256 (every attention config
+//   of the model zoo), taken natively, never padded. A kernel is
+//   instantiated for groups of at most 8 (kMaxG = 8) and of at most 16
+//   (kMaxG = 16); a group of G <= 8 always runs the kMaxG = 8 instance.
 // * Loads. The rows stream through a 3-stage cp.async ring in shared
 //   memory: 16-byte copies, two stages in flight while the third is used.
 //   The copies are asynchronous and cost no registers. Data stay in their own
@@ -40,22 +44,33 @@
 //   the rows of the A operand (zero past G), q held as fragments in
 //   registers, K rows read as B fragments from a padded (conflict-free)
 //   tile. The products of bf16 values are exact in f32 and accumulate in
-//   f32, as in the plain version. A quad of lanes holds one head's scores,
-//   so the online softmax (f32) needs two shuffles for the max. The
+//   f32, as in the plain version. A quad of lanes holds one head's scores
+//   (heads n and n + 8 with kMaxG = 16: the m16 rows of the A operand), so
+//   the online softmax (f32) needs two shuffles for the max. The
 //   probabilities stay f32 and reach the PV sum through shared memory; there
-//   each lane owns HD/32 dims of every head and sums with f32 FMAs. A
+//   each lane owns HD/32 dims of every head and sums with f32 FMAs. Where
+//   the lane's sums would pass 32 registers (kMaxG * HD/32 > 32: hd 128 at
+//   kMaxG 16, hd 192 and 256) the instance is "lean": q stays in shared
+//   memory and is read per tile, and the value rows are taken one at a
+//   time, so acc[kMaxG][HD/32] (128 registers at hd 256, group 16) is the
+//   only large array. A
 //   design with CUDA-core dot products for bf16 as well (the f32 scheme
 //   below) issues about 100 warp instructions per context row and holds
 //   168 registers; on an H100 it reached about a quarter of the byte bound
 //   at T=4096, B=4 (PERF.md).
 // * f32 (tests and reduced f32 engines; no TF32, which would not hold
-//   2e-5). A row's hd floats are read by hd/4 lanes, 16 bytes each, one
+//   2e-5). At hd 32, 64, 128 and G <= 8: a row's hd floats are read by
+//   hd/4 lanes, 16 bytes each, one
 //   online-softmax stream per lane group. The lanes' partial dot products
 //   are reduce-scattered over the row (each halving level keeps half the
 //   heads and sends the other half), so each lane ends with the full
 //   score of one head and runs its softmax; probabilities return to
 //   every lane by shuffles for the PV sum. Each thread stages exactly the
-//   chunks it reads, so this ring needs no barrier at all.
+//   chunks it reads, so this ring needs no barrier at all. Any other f32
+//   shape (hd 96, 192, 256, or G > 8) runs decode_f32_any_kernel, a plain
+//   block-wide loop over tiles of 16 rows in shared memory (scores, softmax
+//   and the PV sum each a pass of the block); it serves tests and reduced
+//   engines, not the bf16 serving path.
 // * Scores are scaled into the base-2 domain (hd^-0.5 * log2 e), so every
 //   exponential is one exp2.
 // * Dense and paged rows are a template parameter. Rows are found by the
@@ -93,7 +108,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;     // query heads per KV head
+constexpr int kMaxGroup = 16; // query heads per KV head the kernels take
 constexpr int kStages = 3;   // pipeline stages in flight (cp.async ring)
 constexpr int kRows = 4;     // f32 kernel: rows of a stream in one stage
 constexpr int kWarpRows = 8; // bf16 kernel: rows of a warp in one stage
@@ -175,21 +190,29 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// N = 1, 2 or 4 bf16 from shared memory (aligned to their size) as f32
+// N bf16 from shared memory as f32: 8-byte words when N % 4 == 0, 4-byte
+// words when N is even, else single elements (p aligned to that size)
 template <int N>
 __device__ __forceinline__ void load_bf16(const unsigned short* p, float* out) {
-  if constexpr (N == 4) {
-    const uint2 w = *reinterpret_cast<const uint2*>(p);
-    out[0] = __uint_as_float(w.x << 16);
-    out[1] = __uint_as_float(w.x & 0xffff0000u);
-    out[2] = __uint_as_float(w.y << 16);
-    out[3] = __uint_as_float(w.y & 0xffff0000u);
-  } else if constexpr (N == 2) {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
-    out[0] = __uint_as_float(w << 16);
-    out[1] = __uint_as_float(w & 0xffff0000u);
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const uint2 w = reinterpret_cast<const uint2*>(p)[i];
+      out[4 * i] = __uint_as_float(w.x << 16);
+      out[4 * i + 1] = __uint_as_float(w.x & 0xffff0000u);
+      out[4 * i + 2] = __uint_as_float(w.y << 16);
+      out[4 * i + 3] = __uint_as_float(w.y & 0xffff0000u);
+    }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const uint32_t w = reinterpret_cast<const uint32_t*>(p)[i];
+      out[2 * i] = __uint_as_float(w << 16);
+      out[2 * i + 1] = __uint_as_float(w & 0xffff0000u);
+    }
   } else {
-    out[0] = __uint_as_float((uint32_t)*p << 16);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = __uint_as_float((uint32_t)p[i] << 16);
   }
 }
 
@@ -241,7 +264,7 @@ __device__ __forceinline__ int row_state(const Args& a, bool in, int p, int pq) 
 // The warps' partials (acc[w][g][d], m[w][g], l[w][g], in shared memory)
 // merge into the split's result: the output with one split, else the
 // workspace row (m, l, acc) of this split.
-template <typename T, int HD>
+template <typename T, int HD, int MAXG>
 __device__ __forceinline__ void finish_split(const Args& a, const float* acc_s,
                                              const float* m_s, const float* l_s,
                                              int split, int b, int kh, int G) {
@@ -250,13 +273,13 @@ __device__ __forceinline__ void finish_split(const Args& a, const float* acc_s,
     const int g = e / HD, d = e - g * HD;
     float mm = m_s[g];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) mm = fmaxf(mm, m_s[w * kMaxG + g]);
+    for (int w = 1; w < kWarps; ++w) mm = fmaxf(mm, m_s[w * MAXG + g]);
     float lsum = 0.f, asum = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float wt = exp2f(m_s[w * kMaxG + g] - mm);
-      lsum += wt * l_s[w * kMaxG + g];
-      asum += wt * acc_s[(w * kMaxG + g) * HD + d];
+      const float wt = exp2f(m_s[w * MAXG + g] - mm);
+      lsum += wt * l_s[w * MAXG + g];
+      asum += wt * acc_s[(w * MAXG + g) * HD + d];
     }
     if (a.splits == 1) {
       store(static_cast<T*>(a.out) + (head0 + g) * HD + d, asum / fmaxf(lsum, 1e-30f));
@@ -275,38 +298,58 @@ __device__ __forceinline__ void finish_split(const Args& a, const float* acc_s,
 // bf16: q.K^T on the tensor cores, softmax and PV in f32
 // ---------------------------------------------------------------------------
 
+// The lean instances (see the note at the top) keep q in shared memory and
+// take the value rows one at a time.
+template <int HD, int MAXG>
+struct LeanBf16 {
+  static constexpr bool value = MAXG * (HD / 32) > 32;
+};
+
 // Shared memory of the bf16 kernel. Warp w stages and reads only its own
 // rows of each stage, so the ring needs warp barriers, not block barriers.
-template <int HD>
+// A lean instance keeps q (MAXG rows, zero past G) after this struct.
+template <int HD, int MAXG>
 struct SmemBf16 {
   static constexpr int LD = HD + 8;  // padded row: conflict-free B fragments
   union {
     unsigned short ring[kStages][kWarps][2][kWarpRows][LD];  // bf16 [..][k|v][row][dim]
     struct {  // after the last stage: the warps' partials
-      float acc[kWarps][kMaxG][HD];
-      float m[kWarps][kMaxG], l[kWarps][kMaxG];
+      float acc[kWarps][MAXG][HD];
+      float m[kWarps][MAXG], l[kWarps][MAXG];
     } merge;
   };
   int pos[kStages][kWarps][kWarpRows];
-  float p[kWarps][kMaxG][kWarpRows];  // probabilities of the warp's rows
-  float corr[kWarps][kMaxG];
+  float p[kWarps][MAXG][kWarpRows];  // probabilities of the warp's rows
+  float corr[kWarps][MAXG];
   int pages[kMaxSplitPages];
 };
 
+template <int HD, int MAXG>
+constexpr size_t smem_bf16() {
+  return sizeof(SmemBf16<HD, MAXG>) +
+         (LeanBf16<HD, MAXG>::value ? sizeof(unsigned short) * MAXG * (HD + 8) : 0);
+}
+
 // Grid (splits, K, B), 4 warps. A stage is 8 rows a warp; lane (n, q) with
-// n = lane / 4, q = lane % 4 holds the scores of head n for rows 2q, 2q + 1
-// (the m16n8 accumulator; heads 8-15 of the 16-row A operand are zero).
-// For the PV sum lane l owns dims [l * HD/32, (l+1) * HD/32) of every head.
-template <int HD, bool PAGED>
+// n = lane / 4, q = lane % 4 holds the scores of head n (and, with MAXG =
+// 16, head n + 8) for rows 2q, 2q + 1 (the m16n8 accumulator; rows of the
+// A operand past G are zero). For the PV sum lane l owns dims
+// [l * HD/32, (l+1) * HD/32) of every head.
+template <int HD, int MAXG, bool PAGED>
 __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
-  using S = SmemBf16<HD>;
+  using S = SmemBf16<HD, MAXG>;
   constexpr int LD = S::LD;
   constexpr int KS = HD / 16;          // k-steps of the QK product
   constexpr int DPL = HD / 32;         // dims a lane owns in the PV sum
   constexpr int CPR = HD / 8;          // 16-byte chunks a row
   constexpr int TILE = kWarps * kWarpRows;
+  constexpr int HPL = MAXG / 8;        // heads whose scores a lane holds
+  constexpr bool kLean = LeanBf16<HD, MAXG>::value;
+  static_assert(MAXG == 8 || MAXG == 16, "groups of at most 8 or 16");
+  static_assert(HD % 32 == 0 && HD <= 256, "head dim a multiple of 32, <= 256");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(smem_raw);
+  unsigned short* q_s = reinterpret_cast<unsigned short*>(smem_raw + sizeof(S));
 
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -319,14 +362,15 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v);
   const int* pc = a.pos_c + (int64_t)b * a.pc_sb;
 
-  // stage this warp's rows of tile j: lane copies chunk lane % CPR of rows
-  // lane / CPR + i * 32 / CPR, K and V; lanes 0-7 copy the positions
+  // stage this warp's rows of tile j: chunk e = lane + 32 i of the warp's
+  // 8 rows (row e / CPR, chunk e % CPR), K and V; lanes 0-7 copy the
+  // positions
   auto fetch = [&](int j) {
     const int stage = j % kStages;
-    const int c = lane % CPR;
 #pragma unroll
     for (int i = 0; i < CPR / 4; ++i) {
-      const int rr = lane / CPR + i * (32 / CPR);
+      const int e = lane + i * 32;
+      const int rr = e / CPR, c = e % CPR;
       const int r = j * TILE + warp * kWarpRows + rr;
       unsigned short* ks = &sm.ring[stage][warp][0][rr][c * 8];
       unsigned short* vs = &sm.ring[stage][warp][1][rr][c * 8];
@@ -355,24 +399,40 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
   }
   asm volatile("griddepcontrol.launch_dependents;\n");  // the combine may launch
 
-  // A operand: row n = head n of the group (zero past G), bf16 as in q
+  // A operand: row r = head r of the group (zero past G), bf16 as in q;
+  // (qh[d], qh[d + 1]) of head r as one 32-bit word
   const int pq = a.pos_q[b];
-  uint32_t qa[KS][4];
-  {
-    const unsigned short* qh = reinterpret_cast<const unsigned short*>(a.q) +
-                               ((int64_t)b * a.H + (int64_t)kh * G + n) * HD;
+  const unsigned short* qh = reinterpret_cast<const unsigned short*>(a.q) +
+                             ((int64_t)b * a.H + (int64_t)kh * G) * HD;
+  auto q_pair = [&](int r, int d) -> uint32_t {
+    return r < G ? (qh[r * HD + d] | ((uint32_t)qh[r * HD + d + 1] << 16)) : 0u;
+  };
+  uint32_t qa[kLean ? 1 : KS][4];
+  if constexpr (kLean) {
+    for (int e = threadIdx.x; e < MAXG * (HD / 2); e += kThreads) {
+      const int r = e / (HD / 2), d = (e % (HD / 2)) * 2;
+      *reinterpret_cast<uint32_t*>(q_s + r * LD + d) = q_pair(r, d);
+    }
+    __syncthreads();
+  } else {
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       const int d = ks * 16 + kq;
-      qa[ks][0] = n < G ? (qh[d] | ((uint32_t)qh[d + 1] << 16)) : 0u;
-      qa[ks][2] = n < G ? (qh[d + 8] | ((uint32_t)qh[d + 9] << 16)) : 0u;
-      qa[ks][1] = qa[ks][3] = 0u;
+      qa[ks][0] = q_pair(n, d);
+      qa[ks][2] = q_pair(n, d + 8);
+      qa[ks][1] = HPL > 1 ? q_pair(n + 8, d) : 0u;
+      qa[ks][3] = HPL > 1 ? q_pair(n + 8, d + 8) : 0u;
     }
   }
-  float m = kMasked, l = 0.f;  // head n's running max and (partial) sum
-  float acc[kMaxG][DPL];
+  float m[HPL], l[HPL];  // heads n (+ 8): running max and (partial) sum
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
+  for (int j = 0; j < HPL; ++j) {
+    m[j] = kMasked;
+    l[j] = 0.f;
+  }
+  float acc[MAXG][DPL];
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g)
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
 
@@ -388,71 +448,119 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
       const unsigned short* kr = ks + n * LD + s * 16 + kq;
-      mma_bf16(c, qa[s], *reinterpret_cast<const uint32_t*>(kr),
-               *reinterpret_cast<const uint32_t*>(kr + 8));
+      if constexpr (kLean) {
+        const unsigned short* qr = q_s + n * LD + s * 16 + kq;
+        uint32_t af[4];
+        af[0] = *reinterpret_cast<const uint32_t*>(qr);
+        af[2] = *reinterpret_cast<const uint32_t*>(qr + 8);
+        af[1] = HPL > 1 ? *reinterpret_cast<const uint32_t*>(qr + 8 * LD) : 0u;
+        af[3] = HPL > 1 ? *reinterpret_cast<const uint32_t*>(qr + 8 * LD + 8) : 0u;
+        mma_bf16(c, af, *reinterpret_cast<const uint32_t*>(kr),
+                 *reinterpret_cast<const uint32_t*>(kr + 8));
+      } else {
+        mma_bf16(c, qa[s], *reinterpret_cast<const uint32_t*>(kr),
+                 *reinterpret_cast<const uint32_t*>(kr + 8));
+      }
     }
-    // online softmax of head n over rows kq, kq + 1 (a quad shares a head)
+    // online softmax of head n (+ 8) over rows kq, kq + 1 (a quad shares a
+    // head)
     const int r0 = it * TILE + warp * kWarpRows + kq;
     const int st0 = row_state(a, r0 < sp.n_rows, sm.pos[stage][warp][kq], pq);
     const int st1 = row_state(a, r0 + 1 < sp.n_rows, sm.pos[stage][warp][kq + 1], pq);
-    const float s0 = st0 == 1 ? kMasked : c[0] * a.scale2;
-    const float s1 = st1 == 1 ? kMasked : c[1] * a.scale2;
-    float mx = m;
-    if (st0) mx = fmaxf(mx, s0);
-    if (st1) mx = fmaxf(mx, s1);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float corr = exp2f(m - mx);
-    const float p0 = st0 ? exp2f(s0 - mx) : 0.f;
-    const float p1 = st1 ? exp2f(s1 - mx) : 0.f;
-    l = l * corr + p0 + p1;
-    m = mx;
-    *reinterpret_cast<float2*>(&sm.p[warp][n][kq]) = make_float2(p0, p1);
-    if (kq == 0) sm.corr[warp][n] = corr;
+#pragma unroll
+    for (int j = 0; j < HPL; ++j) {
+      const float s0 = st0 == 1 ? kMasked : c[2 * j] * a.scale2;
+      const float s1 = st1 == 1 ? kMasked : c[2 * j + 1] * a.scale2;
+      float mx = m[j];
+      if (st0) mx = fmaxf(mx, s0);
+      if (st1) mx = fmaxf(mx, s1);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float corr = exp2f(m[j] - mx);
+      const float p0 = st0 ? exp2f(s0 - mx) : 0.f;
+      const float p1 = st1 ? exp2f(s1 - mx) : 0.f;
+      l[j] = l[j] * corr + p0 + p1;
+      m[j] = mx;
+      *reinterpret_cast<float2*>(&sm.p[warp][n + 8 * j][kq]) = make_float2(p0, p1);
+      if (kq == 0) sm.corr[warp][n + 8 * j] = corr;
+    }
     __syncwarp();
-    // PV in f32: lane's dims of the warp's 8 value rows
-    float vf[kWarpRows][DPL];
+    if constexpr (kLean) {
+      // PV in f32, one value row at a time (few registers beyond acc)
 #pragma unroll
-    for (int rr = 0; rr < kWarpRows; ++rr) load_bf16<DPL>(vs + rr * LD + lane * DPL, vf[rr]);
+      for (int g = 0; g < MAXG; ++g) {
+        if (g < G) {
+          const float cg = sm.corr[warp][g];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        const float cg = sm.corr[warp][g];
-        const float4 pa = *reinterpret_cast<const float4*>(&sm.p[warp][g][0]);
-        const float4 pb = *reinterpret_cast<const float4*>(&sm.p[warp][g][4]);
-        const float pr[kWarpRows] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+          for (int i = 0; i < DPL; ++i) acc[g][i] *= cg;
+        }
+      }
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          float x = acc[g][i] * cg;
+      for (int rr = 0; rr < kWarpRows; ++rr) {
+        float vf[DPL];
+        load_bf16<DPL>(vs + rr * LD + lane * DPL, vf);
 #pragma unroll
-          for (int rr = 0; rr < kWarpRows; ++rr) x = fmaf(pr[rr], vf[rr][i], x);
-          acc[g][i] = x;
+        for (int g = 0; g < MAXG; ++g) {
+          if (g < G) {
+            const float pr = sm.p[warp][g][rr];
+#pragma unroll
+            for (int i = 0; i < DPL; ++i) acc[g][i] = fmaf(pr, vf[i], acc[g][i]);
+          }
+        }
+      }
+    } else {
+      // PV in f32: lane's dims of the warp's 8 value rows
+      float vf[kWarpRows][DPL];
+#pragma unroll
+      for (int rr = 0; rr < kWarpRows; ++rr) load_bf16<DPL>(vs + rr * LD + lane * DPL, vf[rr]);
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) {
+        if (g < G) {
+          const float cg = sm.corr[warp][g];
+          const float4 pa = *reinterpret_cast<const float4*>(&sm.p[warp][g][0]);
+          const float4 pb = *reinterpret_cast<const float4*>(&sm.p[warp][g][4]);
+          const float pr[kWarpRows] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            float x = acc[g][i] * cg;
+#pragma unroll
+            for (int rr = 0; rr < kWarpRows; ++rr) x = fmaf(pr[rr], vf[rr][i], x);
+            acc[g][i] = x;
+          }
         }
       }
     }
     __syncwarp();  // p, corr and this stage are free for the next tile
   }
   cp_async_wait<0>();
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
+#pragma unroll
+  for (int j = 0; j < HPL; ++j) {
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+  }
   __syncthreads();  // the merge buffers overlay every warp's ring
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
+  for (int g = 0; g < MAXG; ++g)
     if (g < G)
 #pragma unroll
       for (int i = 0; i < DPL; ++i) sm.merge.acc[warp][g][lane * DPL + i] = acc[g][i];
   if (kq == 0) {
-    sm.merge.m[warp][n] = m;
-    sm.merge.l[warp][n] = l;
+#pragma unroll
+    for (int j = 0; j < HPL; ++j) {
+      sm.merge.m[warp][n + 8 * j] = m[j];
+      sm.merge.l[warp][n + 8 * j] = l[j];
+    }
   }
   __syncthreads();
-  finish_split<__nv_bfloat16, HD>(a, &sm.merge.acc[0][0][0], &sm.merge.m[0][0],
-                                  &sm.merge.l[0][0], split, b, kh, G);
+  finish_split<__nv_bfloat16, HD, MAXG>(a, &sm.merge.acc[0][0][0], &sm.merge.m[0][0],
+                                        &sm.merge.l[0][0], split, b, kh, G);
 }
 
 // ---------------------------------------------------------------------------
 // f32: CUDA-core FMAs (no TF32), lanes split a row's dims
 // ---------------------------------------------------------------------------
+
+constexpr int kF32G = 8;  // query heads per KV head of decode_f32_kernel
 
 // Shared memory of the f32 kernel. The ring is private to each thread: a
 // thread stages exactly the 16-byte chunks it reads itself, so the main loop
@@ -461,8 +569,8 @@ template <int HD>
 struct SmemF32 {
   uint4 kv[kStages][kRows][2][kThreads];  // [stage][row][k|v][thread]
   int pos[kStages][kRows][kThreads];
-  float acc[kWarps][kMaxG][HD];            // warp partials for the merge
-  float m[kWarps][kMaxG], l[kWarps][kMaxG];
+  float acc[kWarps][kF32G][HD];            // warp partials for the merge
+  float m[kWarps][kF32G], l[kWarps][kF32G];
   int pages[kMaxSplitPages];
 };
 
@@ -481,7 +589,7 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
   constexpr int RPW = 32 / LPR;          // rows (streams) per warp
   constexpr int NS = kWarps * RPW;       // streams per block
   constexpr int TILE = NS * kRows;       // rows per pipeline stage
-  static_assert(LPR >= kMaxG, "three halving levels need 8 lanes a row");
+  static_assert(LPR >= kF32G, "three halving levels need 8 lanes a row");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SmemF32<HD>& sm = *reinterpret_cast<SmemF32<HD>*>(smem_raw);
 
@@ -532,9 +640,9 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
 
   const int pq = a.pos_q[b];
   const float* qp = static_cast<const float*>(a.q) + ((int64_t)b * a.H + (int64_t)kh * G) * HD;
-  float q[kMaxG][VEC];
+  float q[kF32G][VEC];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
+  for (int g = 0; g < kF32G; ++g) {
     const uint4 r = g < G ? load16(qp + g * HD + dim0, vec) : make_uint4(0, 0, 0, 0);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) q[g][i] = elem(r, i);
@@ -545,9 +653,9 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
   };
 
   float m = kMasked, l = 0.f;  // this lane's head
-  float acc[kMaxG][VEC];
+  float acc[kF32G][VEC];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
+  for (int g = 0; g < kF32G; ++g)
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
 
@@ -563,9 +671,9 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
       const int r = it * TILE + u * NS + sid;
       st[u] = row_state(a, r < sp.n_rows, sm.pos[stage][u][tid], pq);
       const uint4 kr = sm.kv[stage][u][0][tid];
-      float v[kMaxG];
+      float v[kF32G];
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
+      for (int g = 0; g < kF32G; ++g) {
         float dot = 0.f;
         if (g < G) {
 #pragma unroll
@@ -576,7 +684,7 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
 #pragma unroll
       for (int lv = 0; lv < 3; ++lv) {
         const int o = LPR >> (lv + 1);
-        const int half = kMaxG >> (lv + 1);
+        const int half = kF32G >> (lv + 1);
         const bool hi = (lir & o) != 0;
 #pragma unroll
         for (int j = 0; j < half; ++j) {
@@ -603,7 +711,7 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
     m = mx;
     l = l * corr + sum;
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
+    for (int g = 0; g < kF32G; ++g) {
       const float cg = __shfl_sync(0xffffffffu, corr, src(g));
       if (g < G) {
 #pragma unroll
@@ -614,7 +722,7 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
     for (int u = 0; u < kRows; ++u) {
       const uint4 vr = sm.kv[stage][u][1][tid];
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
+      for (int g = 0; g < kF32G; ++g) {
         const float pg = __shfl_sync(0xffffffffu, s[u], src(g));
         if (g < G) {
 #pragma unroll
@@ -627,16 +735,16 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
 
   // every lane of a row takes (m, l) of all heads, then the streams of a
   // warp merge (lane groups LPR apart hold the same dims)
-  float mg[kMaxG], lg[kMaxG];
+  float mg[kF32G], lg[kF32G];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
+  for (int g = 0; g < kF32G; ++g) {
     mg[g] = __shfl_sync(0xffffffffu, m, src(g));
     lg[g] = __shfl_sync(0xffffffffu, l, src(g));
   }
 #pragma unroll
   for (int o = LPR; o < 32; o <<= 1) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
+    for (int g = 0; g < kF32G; ++g) {
       const float mo = __shfl_xor_sync(0xffffffffu, mg[g], o);
       const float lo = __shfl_xor_sync(0xffffffffu, lg[g], o);
       const float mm = fmaxf(mg[g], mo);
@@ -652,7 +760,7 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
   }
   if (lane < LPR) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
+    for (int g = 0; g < kF32G; ++g) {
       if (g < G) {
 #pragma unroll
         for (int i = 0; i < VEC; ++i) sm.acc[warp][g][dim0 + i] = acc[g][i];
@@ -664,7 +772,126 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
     }
   }
   __syncthreads();
-  finish_split<float, HD>(a, &sm.acc[0][0][0], &sm.m[0][0], &sm.l[0][0], split, b, kh, G);
+  finish_split<float, HD, kF32G>(a, &sm.acc[0][0][0], &sm.m[0][0], &sm.l[0][0], split, b, kh, G);
+}
+
+// ---------------------------------------------------------------------------
+// f32, any other shape (hd 96 / 192 / 256, or a group of 9-16): plain and
+// block-wide
+// ---------------------------------------------------------------------------
+
+constexpr int kAnyRows = 16;  // context rows of a tile
+
+template <int HD>
+struct SmemAny {
+  float k[kAnyRows][HD + 1];  // padded: a thread per row reads down a column
+  float v[kAnyRows][HD];
+  float q[kMaxGroup][HD + 1];
+  float p[kMaxGroup][kAnyRows];  // scores, then probabilities
+  float acc[kMaxGroup][HD];
+  float m[kMaxGroup], l[kMaxGroup], corr[kMaxGroup];
+  int st[kAnyRows];
+  int pages[kMaxSplitPages];
+};
+
+// Grid (splits, K, B), 128 threads. Per tile of 16 rows: stage K, V and the
+// row states; one thread per (head, row) score; one thread per head for the
+// online softmax (base 2); one thread per (head, dim) for the PV sum, the
+// sums kept in shared memory. Barriers between the passes.
+template <int HD, bool PAGED>
+__global__ void __launch_bounds__(kThreads) decode_f32_any_kernel(Args a) {
+  constexpr int CH = HD / 4;  // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemAny<HD>& sm = *reinterpret_cast<SmemAny<HD>*>(smem_raw);
+
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int G = a.H / a.K;
+  const bool vec = a.vec != 0;
+  const Split sp = begin_split<PAGED>(a, split, b, sm.pages);
+  const float* kp = static_cast<const float*>(a.k);
+  const float* vp = static_cast<const float*>(a.v);
+  const float* qp = static_cast<const float*>(a.q) + ((int64_t)b * a.H + (int64_t)kh * G) * HD;
+  const int* pc = a.pos_c + (int64_t)b * a.pc_sb;
+  const int pq = a.pos_q[b];
+  asm volatile("griddepcontrol.launch_dependents;\n");  // the combine may launch
+
+  for (int e = tid; e < G * HD; e += kThreads) {
+    const int g = e / HD, d = e % HD;
+    sm.q[g][d] = qp[g * HD + d];
+    sm.acc[g][d] = 0.f;
+  }
+  if (tid < G) {
+    sm.m[tid] = kMasked;
+    sm.l[tid] = 0.f;
+  }
+  for (int t0 = 0; t0 < sp.n_rows; t0 += kAnyRows) {
+    __syncthreads();  // the previous tile's K, V and p are consumed
+    for (int e = tid; e < kAnyRows * CH; e += kThreads) {
+      const int r = e / CH, c = (e % CH) * 4;
+      uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
+      if (t0 + r < sp.n_rows) {  // past the split: zeros
+        int64_t kb, vb;
+        row_offsets<PAGED>(a, sp, sm.pages, b, kh, sp.t_begin + t0 + r, kb, vb);
+        kr = load16(kp + kb + c, vec);
+        vr = load16(vp + vb + c, vec);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sm.k[r][c + i] = elem(kr, i);
+        sm.v[r][c + i] = elem(vr, i);
+      }
+    }
+    if (tid < kAnyRows) {
+      const bool in = t0 + tid < sp.n_rows;
+      sm.st[tid] = row_state(a, in, in ? pc[sp.t_begin + t0 + tid] : 0, pq);
+    }
+    __syncthreads();
+    for (int e = tid; e < G * kAnyRows; e += kThreads) {
+      const int g = e / kAnyRows, r = e % kAnyRows;
+      float dot = 0.f;
+      for (int d = 0; d < HD; ++d) dot = fmaf(sm.q[g][d], sm.k[r][d], dot);
+      sm.p[g][r] = sm.st[r] == 1 ? kMasked : dot * a.scale2;
+    }
+    __syncthreads();
+    if (tid < G) {
+      float mx = sm.m[tid];
+      for (int r = 0; r < kAnyRows; ++r)
+        if (sm.st[r]) mx = fmaxf(mx, sm.p[tid][r]);
+      const float corr = exp2f(sm.m[tid] - mx);
+      float sum = 0.f;
+      for (int r = 0; r < kAnyRows; ++r) {
+        const float pr = sm.st[r] ? exp2f(sm.p[tid][r] - mx) : 0.f;
+        sm.p[tid][r] = pr;
+        sum += pr;
+      }
+      sm.m[tid] = mx;
+      sm.l[tid] = sm.l[tid] * corr + sum;
+      sm.corr[tid] = corr;
+    }
+    __syncthreads();
+    for (int e = tid; e < G * HD; e += kThreads) {
+      const int g = e / HD, d = e % HD;
+      float x = sm.acc[g][d] * sm.corr[g];
+      for (int r = 0; r < kAnyRows; ++r) x = fmaf(sm.p[g][r], sm.v[r][d], x);
+      sm.acc[g][d] = x;
+    }
+  }
+  __syncthreads();
+  const int64_t head0 = (int64_t)b * a.H + (int64_t)kh * G;
+  for (int e = tid; e < G * HD; e += kThreads) {
+    const int g = e / HD, d = e % HD;
+    if (a.splits == 1) {
+      static_cast<float*>(a.out)[(head0 + g) * HD + d] = sm.acc[g][d] / fmaxf(sm.l[g], 1e-30f);
+    } else {
+      const int64_t row = (head0 + g) * a.splits + split;
+      a.ws_acc[row * HD + d] = sm.acc[g][d];
+      if (d == 0) {
+        a.ws_ml[row * 2] = sm.m[g];
+        a.ws_ml[row * 2 + 1] = sm.l[g];
+      }
+    }
+  }
 }
 
 // one block per (query head, slot), one thread per dim: merge the splits
@@ -724,10 +951,21 @@ void launch_dyn(const Args& a, dim3 grid, cudaStream_t s) {
 
 template <int HD, bool PAGED>
 void launch_split(int dtype, const Args& a, dim3 grid, cudaStream_t s) {
-  if (dtype == 1)
-    launch_dyn<decode_bf16_kernel<HD, PAGED>, sizeof(SmemBf16<HD>)>(a, grid, s);
-  else
-    launch_dyn<decode_f32_kernel<HD, PAGED>, sizeof(SmemF32<HD>)>(a, grid, s);
+  const int G = a.H / a.K;
+  if (dtype == 1) {
+    if (G <= 8)
+      launch_dyn<decode_bf16_kernel<HD, 8, PAGED>, smem_bf16<HD, 8>()>(a, grid, s);
+    else
+      launch_dyn<decode_bf16_kernel<HD, 16, PAGED>, smem_bf16<HD, 16>()>(a, grid, s);
+    return;
+  }
+  if constexpr (HD == 32 || HD == 64 || HD == 128) {
+    if (G <= kF32G) {
+      launch_dyn<decode_f32_kernel<HD, PAGED>, sizeof(SmemF32<HD>)>(a, grid, s);
+      return;
+    }
+  }
+  launch_dyn<decode_f32_any_kernel<HD, PAGED>, sizeof(SmemAny<HD>)>(a, grid, s);
 }
 
 int launch(int dtype, const Args& a, int B, cudaStream_t s, bool paged) {
@@ -737,8 +975,14 @@ int launch(int dtype, const Args& a, int B, cudaStream_t s, bool paged) {
     case 65: launch_split<32, true>(dtype, a, grid, s); break;
     case 128: launch_split<64, false>(dtype, a, grid, s); break;
     case 129: launch_split<64, true>(dtype, a, grid, s); break;
+    case 192: launch_split<96, false>(dtype, a, grid, s); break;
+    case 193: launch_split<96, true>(dtype, a, grid, s); break;
     case 256: launch_split<128, false>(dtype, a, grid, s); break;
     case 257: launch_split<128, true>(dtype, a, grid, s); break;
+    case 384: launch_split<192, false>(dtype, a, grid, s); break;
+    case 385: launch_split<192, true>(dtype, a, grid, s); break;
+    case 512: launch_split<256, false>(dtype, a, grid, s); break;
+    case 513: launch_split<256, true>(dtype, a, grid, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (a.splits > 1) {
@@ -774,7 +1018,7 @@ extern "C" int decode_attention_launch(
     int K, int hd, int T, int page, int window, int rows, int vec,
     int64_t k_sb, int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,
     int64_t v_sh, int64_t pc_sb, int64_t pg_sb, float scale, void* stream) {
-  if (B <= 0 || T <= 0 || rows <= 0 || K <= 0 || H % K || H / K > kMaxG)
+  if (B <= 0 || T <= 0 || rows <= 0 || K <= 0 || H % K || H / K > kMaxGroup)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.pos_q = pos_q; a.pos_c = pos_c;

@@ -62,16 +62,24 @@
 //   fragments (below) was ~1.4x slower at hd 128 on an H100: every warp
 //   read the whole K and V tile from shared memory for its 16 rows, and
 //   those reads, not the products or the exponentials, set its pace.
-// * hd 32 and 64 (reduced configs), flash_bf16_kernel: mma.sync m16n8k16,
+// * hd 32 and 64 (reduced configs), 96, 192 and 256 (phi-3-vision,
+//   nemotron-4, recurrentgemma), flash_bf16_kernel: mma.sync m16n8k16,
 //   fragments by ldmatrix.x4 (.trans for V) from rows padded to hd + 8
 //   elements (the 8 row addresses of each 8x8 matrix fall on 8 disjoint
-//   groups of 4 banks). __launch_bounds__(128, 3).
+//   groups of 4 banks at every one of these hd). The f32 output tile of a
+//   warp's 16 rows is hd / 2 registers a thread (128 at hd 256), so the
+//   blocks an SM the launch bounds ask for fall with hd: 3 up to hd 128, 2
+//   at hd 192 and 1 at hd 256 (255 registers a thread, no spill; shared
+//   memory of 53, 102 and 135 KB allows the same). Any GQA group: a block
+//   reads the KV head of its query head.
 // flash_attention_tiled_plain (same Python module) is this tile loop in
 // PyTorch, and the tests hold both kernels to it.
 //
 // f32 (tests and reduced f32 engines) must not use TF32, so it multiplies
 // with plain FMAs over shared-memory tiles (each thread 4 rows x 8 keys of
-// scores, 4 rows x hd/8 columns of output), in the natural exp domain.
+// scores, 4 rows x hd/8 columns of output), in the natural exp domain; at
+// hd 256 its tiles take 213,760 bytes of shared memory, under the 227 KB a
+// block may have.
 //
 // Rows are addressed by strides, so a q view from rope goes in without a
 // copy. The shared-memory opt-in is made once per kernel and device, so a
@@ -291,8 +299,15 @@ constexpr size_t smem_bf16() {
   return sizeof(__nv_bfloat16) * (kBlockQ + kSlots * kBlockK) * (HD + 8);
 }
 
+// resident blocks an SM that flash_bf16_kernel's launch bounds ask for
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 3) flash_bf16_kernel(Args a) {
+struct Bf16Occupancy {
+  static constexpr int kBlocks = HD <= 128 ? 3 : (HD <= 192 ? 2 : 1);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, Bf16Occupancy<HD>::kBlocks)
+    flash_bf16_kernel(Args a) {
   constexpr int LD = HD + 8;          // +16 bytes: conflict-free ldmatrix
   constexpr int kTile = kBlockK * LD;  // elements of one staged tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -938,7 +953,10 @@ extern "C" int flash_attention_launch(
   switch (hd) {
     case 32: return launch_hd<32>(dtype, B, s, a);
     case 64: return launch_hd<64>(dtype, B, s, a);
+    case 96: return launch_hd<96>(dtype, B, s, a);
     case 128: return launch_hd<128>(dtype, B, s, a);
+    case 192: return launch_hd<192>(dtype, B, s, a);
+    case 256: return launch_hd<256>(dtype, B, s, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -950,7 +968,10 @@ extern "C" int flash_attention_blocks_per_sm(int dtype, int hd) {
   switch (hd) {
     case 32: return blocks_per_sm_hd<32>(dtype);
     case 64: return blocks_per_sm_hd<64>(dtype);
+    case 96: return blocks_per_sm_hd<96>(dtype);
     case 128: return blocks_per_sm_hd<128>(dtype);
+    case 192: return blocks_per_sm_hd<192>(dtype);
+    case 256: return blocks_per_sm_hd<256>(dtype);
     default: return -1;
   }
 }

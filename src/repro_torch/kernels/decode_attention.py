@@ -27,8 +27,9 @@ import torch
 from repro_torch.kernels import runtime
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 8  # query heads per KV head the kernel holds
+#: head dims the kernels take natively (every attention config of the zoo)
+HEAD_DIMS = (32, 64, 96, 128, 192, 256)
+MAX_GROUP = 16  # query heads per KV head the kernel holds
 MIN_SPLIT_ROWS, MAX_SPLIT_ROWS = 32, 1024  # context rows per split
 MAX_SPLIT_PAGES = 256  # page-table entries a split stages (kMaxSplitPages)
 
@@ -129,6 +130,13 @@ def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(b, 1, h, d).to(q.dtype)
 
 
+def supports(hd: int, group: int) -> bool:
+    """True when the kernel takes head dim ``hd`` with ``group`` query heads
+    per KV head (dense and paged, float32 and bfloat16); the wrappers raise
+    on anything else and never fall back to the plain version."""
+    return hd in HEAD_DIMS and 1 <= group <= MAX_GROUP
+
+
 def split_rows_for(b: int, num_kv: int, t: int, sms: int,
                    page: Optional[int] = None) -> int:
     """Context rows per split for the kernel: the least power of two
@@ -204,8 +212,6 @@ def _check_common(q, k, v, pos_q, pos_cache):
         raise ValueError(f"q must be a contiguous (B, 1, H, hd), got "
                          f"{tuple(q.shape)}")
     b, _, h, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     for name, x in (("k", k), ("v", v)):
         if x.dim() != 4 or x.shape[3] != hd or x.stride(3) != 1:
             raise ValueError(f"{name} must be (., ., K, {hd}) with unit "
@@ -213,9 +219,10 @@ def _check_common(q, k, v, pos_q, pos_cache):
     if v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     kh = k.shape[2]
-    if h % kh or h // kh > MAX_GROUP:
-        raise ValueError(f"{h} query heads over {kh} KV heads: the kernel "
-                         f"takes groups of at most {MAX_GROUP}")
+    if h % kh or not supports(hd, h // kh):
+        raise ValueError(f"decode attention kernel: head dim {hd} with {h} "
+                         f"query heads over {kh} KV heads is not taken (head "
+                         f"dims {HEAD_DIMS}, groups of 1-{MAX_GROUP})")
     _check_int("pos_q", pos_q, 1)
     _check_int("pos_cache", pos_cache, 2)
     if pos_q.shape[0] != b or pos_cache.shape[0] != b:

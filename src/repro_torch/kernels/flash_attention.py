@@ -184,6 +184,13 @@ def blocks_per_sm(dtype: torch.dtype, hd: int) -> int:
     return n
 
 
+def supports(hd: int, group: int) -> bool:
+    """True when the kernel takes head dim ``hd`` with ``group`` query heads
+    per KV head (float32 and bfloat16; any group): the wrapper raises on
+    anything else and never falls back to the plain version."""
+    return hd in HEAD_DIMS and group >= 1
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
@@ -199,8 +206,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     b, s, h, kh, hd = _check_shapes(q, k, v, window)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if not supports(hd, h // kh):
+        raise ValueError(f"flash attention kernel: head dim {hd} is not "
+                         f"taken (head dims {HEAD_DIMS})")
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("q, k and v need unit stride on the head dim")
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)

@@ -6,11 +6,13 @@ runs the plain PyTorch version, a CUDA tensor launches the kernel (or the
 kernel wrapper raises on what it does not take); any other device raises.
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``<wrapper>.launches``, once the launch has returned without error, so a
-run can show that its path went through the kernel. A decode call counts
-as one launch though it is two device launches (split and combine) when the
-context is split. The kernels take head dims 32/64/128 unpadded and scale
-scores by the true head dim, so the JAX package's ``_pad_head`` has no
-counterpart.
+run can show that its path went through the kernel; the attention wrappers
+also count by shape, ``<wrapper>.by_shape[(hd, group)]``. A decode call
+counts as one launch though it is two device launches (split and combine)
+when the context is split. The kernels take head dims 32/64/96/128/192/256 unpadded
+(``supports`` in each kernel module; decode takes groups of up to 16 query
+heads per KV head, flash any group) and scale scores by the true head dim,
+so the JAX package's ``_pad_head`` has no counterpart.
 """
 from __future__ import annotations
 
@@ -27,6 +29,11 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
 from repro_torch.kernels.image_complexity import (image_complexity_cuda,
                                                   image_stats_cuda,
                                                   image_stats_plain)
+
+
+def _count_shape(fn, q: torch.Tensor, k: torch.Tensor) -> None:
+    key = (int(q.shape[-1]), int(q.shape[-2]) // int(k.shape[-2]))
+    fn.by_shape[key] = fn.by_shape.get(key, 0) + 1
 
 
 def _route(x: torch.Tensor, what: str) -> bool:
@@ -103,11 +110,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if _route(q, "flash_attention"):
         out = flash_attention_cuda(q, k, v, causal=causal, window=window)
         flash_attention.launches += 1
+        _count_shape(flash_attention, q, k)
         return out
     return flash_attention_plain(q, k, v, causal=causal, window=window)
 
 
 flash_attention.launches = 0
+flash_attention.by_shape = {}
 
 
 def decode_attention(q, k_cache, v_cache, pos_q, pos_cache, *,
@@ -117,12 +126,14 @@ def decode_attention(q, k_cache, v_cache, pos_q, pos_cache, *,
         out = decode_attention_cuda(q, k_cache, v_cache, pos_q, pos_cache,
                                     window=window)
         decode_attention.launches += 1
+        _count_shape(decode_attention, q, k_cache)
         return out
     return decode_attention_plain(q, k_cache, v_cache, pos_q, pos_cache,
                                   window=window)
 
 
 decode_attention.launches = 0
+decode_attention.by_shape = {}
 
 
 def decode_attention_paged(q, k_pool, v_pool, pages, pos_q, pos_cache, *,
@@ -133,12 +144,14 @@ def decode_attention_paged(q, k_pool, v_pool, pages, pos_q, pos_cache, *,
         out = decode_attention_paged_cuda(q, k_pool, v_pool, pages, pos_q,
                                           pos_cache, window=window)
         decode_attention_paged.launches += 1
+        _count_shape(decode_attention_paged, q, k_pool)
         return out
     return decode_attention_paged_plain(q, k_pool, v_pool, pages, pos_q,
                                         pos_cache, window=window)
 
 
 decode_attention_paged.launches = 0
+decode_attention_paged.by_shape = {}
 
 #: every counted wrapper, by name (for resetting and reading the counts)
 COUNTED = {"image_stats": image_stats,
@@ -150,7 +163,15 @@ COUNTED = {"image_stats": image_stats,
 def reset_launches() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
+        if hasattr(fn, "by_shape"):
+            fn.by_shape = {}
 
 
 def launches() -> Dict[str, int]:
     return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def launches_by_shape() -> Dict[str, Dict[tuple, int]]:
+    """``{wrapper: {(hd, group): launches}}`` of the attention wrappers."""
+    return {name: dict(fn.by_shape) for name, fn in COUNTED.items()
+            if hasattr(fn, "by_shape")}

@@ -13,11 +13,12 @@ def build_model(cfg: ModelConfig, attn_impl: str = "auto",
                 device: Union[str, torch.device] = "cuda"):
     """Construct the family-appropriate model on ``device`` (default
     ``cuda``; raises when no card is present)."""
-    if cfg.family not in ("dense", "vlm"):
+    from repro_torch.models.transformer import FAMILIES, DecoderLM
+
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP queue 1, "
-            f"item 11 (remaining families: moe, ssm, hybrid, encdec)")
-    from repro_torch.models.transformer import DecoderLM
+            f"item 11 (remaining families: moe next, then encdec)")
 
     return DecoderLM(cfg, attn_impl=attn_impl, param_dtype=param_dtype,
                      decode_impl=decode_impl, device=device)

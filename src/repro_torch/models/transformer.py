@@ -1,5 +1,5 @@
-"""Decoder-only LM for the ``dense`` and ``vlm`` families. Counterpart of
-``repro/models/transformer.py::DecoderLM``.
+"""Decoder-only LM for the ``dense``, ``vlm``, ``ssm`` and ``hybrid``
+families. Counterpart of ``repro/models/transformer.py::DecoderLM``.
 
 Parameters travel as a nested dict with the JAX tree's names and
 layer-stacked shapes (``blocks/wq`` is ``(L, d, H*hd)``), so one model
@@ -7,13 +7,20 @@ object serves several engines and a JAX parameter tree converts by copy
 (``repro_torch.convert``). The cache tree keeps the JAX leaf names and row
 shapes: ``blocks/{k,v}`` ``(L, B, T, K, hd)``, ``pos`` ``(B, T)``,
 ``index`` ``(B,)``, plus ``pages`` ``(B, n_pt)`` when the engine pages the
-KV leaves into ``(L, P, page, K, hd)`` pools.
+KV leaves into ``(L, P, page, K, hd)`` pools. The ``ssm`` cache is
+``blocks/{conv,h}`` (Mamba-2 conv window and f32 state per layer, no
+``pos``); the ``hybrid`` cache holds ``repeats/rglru/{conv,h}`` ``(R, n_rec,
+B, ...)`` (batch at axis 2), ``repeats/attn/{k,v}`` ``(R, B, w, K, hd)``, a
+ring of ``w = min(capacity, local_window)`` rows where position p lives at
+row p % w, ``extra/{conv,h}`` for layers past the last whole pattern, and
+``pos``/``index`` ``(B, w)``/``(B,)`` over the ring.
 
 Unlike the JAX package, decode updates the cache IN PLACE: ``decode_step``
 (one token) and ``decode_chunk`` (S tokens against the cache, the suffix
 prefill of a warm admission) write ``pos`` / ``index`` and each layer's new
 K/V rows into the tensors they were given (before attention reads them) and
-return the same dict.
+return the same dict; so do ``decode_chunk_recurrent`` and the recurrent
+families' decode, which overwrite each layer's conv window and state.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_rope, embed, pad_vocab,
                                        rms_norm, rope_freqs, unembed)
 from repro_torch.models.mlp import mlp_forward, mlp_specs
@@ -34,6 +43,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 #: prefill attention impls (``attention.attention``); ``cuda``/``torch`` are
 #: the counterpart of the JAX package's ``pallas``
 ATTN_IMPLS = ("auto", "dense", "flash", "local", "cuda", "torch")
+#: the families the port serves
+FAMILIES = ("dense", "vlm", "ssm", "hybrid")
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -67,6 +78,26 @@ def attn_specs(cfg: ModelConfig, prefix_axes=(), include_mlp=True) -> dict:
     return s
 
 
+def rglru_unit_specs(cfg: ModelConfig, prefix_axes=()) -> dict:
+    ps = tuple(n for n, _ in prefix_axes)
+    pa = tuple(a for _, a in prefix_axes)
+    s = rglru_mod.rglru_specs(cfg, prefix_axes)
+    s["ln2"] = ParamSpec(ps + (cfg.d_model,), pa + ("embed",), "zeros")
+    s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, cfg.activation, prefix_axes)
+    return s
+
+
+def _ring_roll(x: torch.Tensor, shift: torch.Tensor, axis: int
+               ) -> torch.Tensor:
+    """Row b of ``x`` rolled by ``shift[b]`` along ``axis`` (>= 1; batch is
+    axis 0): ``jnp.roll`` per row, as one gather, no host sync."""
+    w = x.shape[axis]
+    src = (torch.arange(w, device=x.device)[None] - shift.long()[:, None]) % w
+    idx = src.reshape(src.shape[:1] + (1,) * (axis - 1) + (w,)
+                      + (1,) * (x.dim() - axis - 1))
+    return torch.gather(x, axis, idx.expand(x.shape))
+
+
 def _layer(tree: Dict[str, Any], l: int) -> Dict[str, Any]:
     return {k: (_layer(v, l) if isinstance(v, dict) else v[l])
             for k, v in tree.items()}
@@ -79,10 +110,10 @@ class DecoderLM(nn.Module):
                  param_dtype: str = "", decode_impl: str = "auto",
                  device: Union[str, torch.device] = "cuda"):
         super().__init__()
-        if cfg.family not in ("dense", "vlm"):
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r}: only dense and vlm are ported "
-                f"(ROADMAP queue 1, item 11: remaining families)")
+                f"family {cfg.family!r}: only {', '.join(FAMILIES)} are "
+                f"ported (ROADMAP queue 1, item 11: moe next, then encdec)")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS} "
                              f"(the JAX 'pallas' is 'cuda' here)")
@@ -113,8 +144,30 @@ class DecoderLM(nn.Module):
         if not cfg.tie_embeddings:
             s["unembed"] = ParamSpec((self.v_pad, d), ("vocab", "embed"),
                                      "scaled")
-        s["blocks"] = attn_specs(cfg, ((cfg.num_layers, "layers"),))
+        L = cfg.num_layers
+        if cfg.family in ("dense", "vlm"):
+            s["blocks"] = attn_specs(cfg, ((L, "layers"),))
+        elif cfg.family == "ssm":
+            s["blocks"] = ssm_mod.ssd_specs(cfg, ((L, "layers"),))
+        else:  # hybrid
+            reps, extra = self._hybrid_counts()
+            n_rec = self._n_rec()
+            s["repeats"] = {
+                "rglru": rglru_unit_specs(cfg, ((reps, "repeats"),
+                                                (n_rec, "pattern"))),
+                "attn": attn_specs(cfg, ((reps, "repeats"),)),
+            }
+            if extra:
+                s["extra"] = rglru_unit_specs(cfg, ((extra, "layers"),))
         return s
+
+    def _hybrid_counts(self) -> Tuple[int, int]:
+        """(full pattern repeats, extra leading-kind units)."""
+        pat = len(self.cfg.block_pattern)
+        return self.cfg.num_layers // pat, self.cfg.num_layers % pat
+
+    def _n_rec(self) -> int:
+        return sum(1 for bk in self.cfg.block_pattern if bk == "rglru")
 
     def init(self, seed: Union[int, torch.Generator] = 0) -> dict:
         """Random parameters from ``seed`` on this model's device."""
@@ -129,19 +182,56 @@ class DecoderLM(nn.Module):
         ``cache_axes``): the engine slices a slot's rows along "batch" and
         a stored prefix along "seq"."""
         kv = ("layers", "batch", "seq", "kv_heads", None)
-        return {"blocks": {"k": kv, "v": kv}, "pos": ("batch", "seq"),
-                "index": ("batch",)}
+        fam = self.cfg.family
+        if fam in ("dense", "vlm"):
+            return {"blocks": {"k": kv, "v": kv}, "pos": ("batch", "seq"),
+                    "index": ("batch",)}
+        if fam == "ssm":
+            return {"blocks": {"conv": ("layers", "batch", None, "heads"),
+                               "h": ("layers", "batch", "heads", None,
+                                     None)}}
+        rg = lambda pre: {"conv": pre + ("batch", None, "heads"),
+                          "h": pre + ("batch", "heads")}
+        ring = ("repeats", "batch", "seq", "kv_heads", None)
+        out = {"repeats": {"rglru": rg(("repeats", "pattern")),
+                           "attn": {"k": ring, "v": ring}},
+               "pos": ("batch", "seq"), "index": ("batch",)}
+        if self._hybrid_counts()[1]:
+            out["extra"] = rg(("layers",))
+        return out
 
     def init_cache(self, batch: int, capacity: int) -> dict:
-        cfg = self.cfg
-        shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        z = lambda: torch.zeros(shape, dtype=self.dtype, device=self.device)
-        return {"blocks": {"k": z(), "v": z()},
-                "pos": torch.full((batch, capacity), -1, dtype=torch.int32,
-                                  device=self.device),
-                "index": torch.zeros((batch,), dtype=torch.int32,
-                                     device=self.device)}
+        """Zero caches (``pos`` -1); recurrent states ``h`` in float32, KV
+        and conv windows in the model dtype, as the JAX package keeps
+        them."""
+        cfg, dev = self.cfg, self.device
+        z = lambda shape, dt=None: torch.zeros(shape, dtype=dt or self.dtype,
+                                               device=dev)
+        bk = lambda w: {"pos": torch.full((batch, w), -1, dtype=torch.int32,
+                                          device=dev),
+                        "index": torch.zeros((batch,), dtype=torch.int32,
+                                             device=dev)}
+        hd, k = cfg.resolved_head_dim, cfg.num_kv_heads
+        if cfg.family in ("dense", "vlm"):
+            shape = (cfg.num_layers, batch, capacity, k, hd)
+            return {"blocks": {"k": z(shape), "v": z(shape)}, **bk(capacity)}
+        if cfg.family == "ssm":
+            cs = ssm_mod.ssd_cache_shape(cfg, batch)
+            return {"blocks": {
+                "conv": z((cfg.num_layers,) + cs["conv"]),
+                "h": z((cfg.num_layers,) + cs["h"], torch.float32)}}
+        reps, extra = self._hybrid_counts()
+        w = min(capacity, cfg.local_window)
+        cs = rglru_mod.rglru_cache_shape(cfg, batch)
+        rg = lambda pre: {"conv": z(pre + cs["conv"]),
+                          "h": z(pre + cs["h"], torch.float32)}
+        ring = (reps, batch, w, k, hd)
+        out = {"repeats": {"rglru": rg((reps, self._n_rec())),
+                           "attn": {"k": z(ring), "v": z(ring)}},
+               **bk(w)}
+        if extra:
+            out["extra"] = rg((extra,))
+        return out
 
     # ------------------------------------------------------------------
     # blocks
@@ -219,6 +309,35 @@ class DecoderLM(nn.Module):
                     else "auto")
             out = attn_mod.attention(q, kr, vr, pos_q, pr, causal=True,
                                      window=window, impl=impl)
+        elif mode == "ringchunk":
+            # S tokens against a RING-BUFFER window cache (the hybrid
+            # family's suffix prefill): each token attends the old ring
+            # content plus the suffix's own KV, masked by absolute position.
+            # Exact for any S: whatever a per-token decode would have
+            # overwritten before token t carries a position <= t - window
+            # and is window-masked regardless. The ring is then rewritten
+            # from the suffix tail (position p lives at row p % w).
+            kc, vc = lcache["k"], lcache["v"]
+            w = kc.shape[2]
+            kcat = torch.cat([kc[layer].to(k.dtype), k], dim=1)
+            vcat = torch.cat([vc[layer].to(v.dtype), v], dim=1)
+            pcat = torch.cat([pos_kv, pos_q.to(torch.int32)], dim=1)
+            # the self-attention kernel and its plain version take no
+            # positions: the position-aware choice stands in for them
+            impl = (self.attn_impl if self.attn_impl in ("dense", "flash")
+                    else "auto")
+            out = attn_mod.attention(q, kcat, vcat, pos_q, pcat, causal=True,
+                                     window=window, impl=impl)
+            if s < w:
+                bi = torch.arange(b, device=x.device)[:, None]
+                widx = (idx.long()[:, None]
+                        + torch.arange(s, device=x.device)) % w
+                kc[layer, bi, widx] = k.to(kc.dtype)
+                vc[layer, bi, widx] = v.to(vc.dtype)
+            else:
+                r0 = pos_q[:, s - w] % w
+                kc[layer] = _ring_roll(k[:, s - w:], r0, 1).to(kc.dtype)
+                vc[layer] = _ring_roll(v[:, s - w:], r0, 1).to(vc.dtype)
         else:
             out = attn_mod.attention(q, k, v, pos_q, pos_q, causal=True,
                                      window=window, impl=self.attn_impl)
@@ -234,10 +353,42 @@ class DecoderLM(nn.Module):
     # the stack
     # ------------------------------------------------------------------
 
+    def _rglru_unit(self, lp, x, mode, lcache):
+        """One RG-LRU unit and its MLP. Decode and the suffix pass
+        ("ringchunk") start from ``lcache`` and overwrite it in place with
+        the new conv window and state; prefill returns them."""
+        cfg = self.cfg
+        new_cache = None
+        if mode == "decode":
+            x, nc = rglru_mod.rglru_decode(lp, x, cfg, lcache)
+        elif mode == "ringchunk":
+            x, nc = rglru_mod.rglru_forward(lp, x, cfg,
+                                            conv_state=lcache["conv"],
+                                            h_state=lcache["h"])
+        else:
+            x, new_cache = rglru_mod.rglru_forward(lp, x, cfg)
+        if lcache is not None:
+            lcache["conv"].copy_(nc["conv"])
+            lcache["h"].copy_(nc["h"])
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + mlp_forward(lp["mlp"], h2, cfg.activation).to(x.dtype)
+        return x, new_cache
+
+    def _rope(self, positions):
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return None, None
+        return rope_freqs(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
     def _stack(self, params, x, positions, mode, cache, ctx=None,
                idx=None):
         cfg = self.cfg
-        cos, sin = rope_freqs(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        if cfg.family == "ssm":
+            return self._ssm_stack(params, x, mode, cache)
+        cos, sin = self._rope(positions)
+        if cfg.family == "hybrid":
+            return self._hybrid_stack(params, x, positions, cos, sin, mode,
+                                      cache, idx)
         pos_kv = cache["pos"] if cache is not None else None
         pages = cache.get("pages") if cache is not None else None
         lcache = cache["blocks"] if cache is not None else None
@@ -254,6 +405,79 @@ class DecoderLM(nn.Module):
                         if ks else {})
         return x, layer_caches
 
+    def _ssm_stack(self, params, x, mode, cache):
+        """Mamba-2 layers. Prefill returns the stacked conv windows and
+        states; decode and the suffix pass ("ringchunk") start from the
+        cache and overwrite it in place."""
+        cfg = self.cfg
+        convs, hs = [], []
+        for l in range(cfg.num_layers):
+            lp = _layer(params["blocks"], l)
+            if cache is None:
+                x, nc = ssm_mod.ssd_forward(lp, x, cfg)
+                convs.append(nc["conv"])
+                hs.append(nc["h"])
+                continue
+            lc = _layer(cache["blocks"], l)
+            if mode == "decode":
+                x, nc = ssm_mod.ssd_decode(lp, x, cfg, lc)
+            else:
+                x, nc = ssm_mod.ssd_forward(lp, x, cfg, conv_state=lc["conv"],
+                                            h_state=lc["h"])
+            lc["conv"].copy_(nc["conv"])
+            lc["h"].copy_(nc["h"])
+        if convs:
+            return x, {"blocks": {"conv": torch.stack(convs),
+                                  "h": torch.stack(hs)}}
+        return x, {}
+
+    def _hybrid_stack(self, params, x, positions, cos, sin, mode, cache,
+                      idx):
+        """Repeats of (rglru x n_rec, local attention), then the extra
+        rglru units. Attention is over a window of ``local_window``:
+        prefill through ``attention`` (the flash kernel under "cuda"),
+        decode through the dense decode dispatcher over the ring."""
+        cfg = self.cfg
+        reps, extra = self._hybrid_counts()
+        n_rec = self._n_rec()
+        win = cfg.local_window
+        pos_kv = cache["pos"] if cache is not None else None
+        rep_c = cache["repeats"] if cache is not None else None
+        rg, ks, vs = [], [], []
+        for r in range(reps):
+            lp = _layer(params["repeats"], r)
+            units = []
+            for i in range(n_rec):
+                subc = (None if rep_c is None else
+                        {n: rep_c["rglru"][n][r, i] for n in ("conv", "h")})
+                x, nc = self._rglru_unit(_layer(lp["rglru"], i), x, mode,
+                                         subc)
+                units.append(nc)
+            x, kv = self._attn_block(
+                lp["attn"], x, cos, sin, positions, pos_kv, mode, win,
+                None if rep_c is None else rep_c["attn"], idx, layer=r)
+            if kv is not None:
+                rg.append(units)
+                ks.append(kv[0])
+                vs.append(kv[1])
+        ex = []
+        for e in range(extra):
+            subc = (None if cache is None else
+                    {n: cache["extra"][n][e] for n in ("conv", "h")})
+            x, nc = self._rglru_unit(_layer(params["extra"], e), x, mode,
+                                     subc)
+            ex.append(nc)
+        if not ks:
+            return x, {}
+        stack = lambda units, n: torch.stack([u[n] for u in units])
+        out = {"repeats": {
+            "rglru": {n: torch.stack([stack(u, n) for u in rg])
+                      for n in ("conv", "h")},
+            "attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}}
+        if ex:
+            out["extra"] = {n: stack(ex, n) for n in ("conv", "h")}
+        return x, out
+
     # ------------------------------------------------------------------
     # modes
     # ------------------------------------------------------------------
@@ -262,7 +486,8 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         x = embed(batch["tokens"], params["embed"]).to(self.dtype)
         prefix = 0
-        if (cfg.frontend == "vision_stub" and mode not in ("decode", "chunk")
+        if (cfg.frontend == "vision_stub"
+                and mode not in ("decode", "chunk", "ringchunk")
                 and "patches" in batch):
             px = torch.matmul(batch["patches"].to(self.dtype),
                               params["proj_in"])
@@ -322,29 +547,42 @@ class DecoderLM(nn.Module):
         return logits, cache
 
     def _assemble_prefill_cache(self, layer_caches, b, s, capacity):
-        """Pad per-layer prefill KV into capacity-sized decode caches."""
-        dev = self.device
+        """Pad per-layer prefill KV into capacity-sized decode caches; the
+        hybrid family's into its ring (position p at row p % w)."""
+        cfg, dev = self.cfg, self.device
+        if cfg.family == "ssm":
+            return {"blocks": layer_caches["blocks"]}
+        ring = cfg.family == "hybrid"
+        w = min(capacity, cfg.local_window) if ring else capacity
 
-        def pad_full(kv):  # (L,B,S,K,hd) -> (L,B,T,K,hd)
-            if s >= capacity:
-                return kv[:, :, s - capacity:]
-            out = kv.new_zeros(kv.shape[:2] + (capacity,) + kv.shape[3:])
-            out[:, :, :s] = kv
+        def fit(kv, axis):  # time axis `axis` of length s -> w rows
+            if s >= w:
+                last = kv.narrow(axis, s - w, w)
+                return torch.roll(last, (s - w) % w, dims=axis) if ring \
+                    else last.contiguous()
+            shape = list(kv.shape)
+            shape[axis] = w
+            out = torch.full(shape, -1, dtype=kv.dtype, device=dev) \
+                if kv.dtype == torch.int32 else kv.new_zeros(shape)
+            out.narrow(axis, 0, s).copy_(kv)
             return out
 
-        cache: Dict[str, Any] = {
-            "blocks": {k: pad_full(v)
-                       for k, v in layer_caches["blocks"].items()}}
         pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
-        if s >= capacity:
-            pos = pos[:, s - capacity:].contiguous()
+        cache: Dict[str, Any] = {"pos": fit(pos, 1)}
+        if ring:
+            rep = layer_caches["repeats"]
+            cache["repeats"] = {"rglru": rep["rglru"],
+                                "attn": {n: fit(v, 2)
+                                         for n, v in rep["attn"].items()}}
+            if "extra" in layer_caches:
+                cache["extra"] = layer_caches["extra"]
+            cache["index"] = torch.full((b,), s % w, dtype=torch.int32,
+                                        device=dev)
         else:
-            pos = torch.cat([pos, torch.full((b, capacity - s), -1,
-                                             dtype=torch.int32, device=dev)],
-                            dim=1)
-        cache["pos"] = pos
-        cache["index"] = torch.full((b,), min(s, capacity) % max(capacity, 1),
-                                    dtype=torch.int32, device=dev)
+            cache["blocks"] = {n: fit(v, 2)
+                               for n, v in layer_caches["blocks"].items()}
+            cache["index"] = torch.full((b,), min(s, w) % max(w, 1),
+                                        dtype=torch.int32, device=dev)
         return cache
 
     def decode_step(self, params, cache, batch, ctx=None):
@@ -353,12 +591,15 @@ class DecoderLM(nn.Module):
 
         ``ctx`` hints that every live cache entry, this token's write
         included, sits at an index below ``ctx``: attention then reads only
-        the leading ``ctx`` entries. Bookkeeping stays full width."""
-        idx = cache["index"].clone()  # (B,) this token's write index
-        bi = torch.arange(idx.shape[0], device=idx.device)
-        cache["pos"][bi, idx.long()] = batch["positions"].to(torch.int32)
-        cap = cache["pos"].shape[1]
-        cache["index"] = (idx + 1) % cap
+        the leading ``ctx`` entries. Bookkeeping stays full width (the
+        ring's width for the hybrid family; the ssm family keeps none)."""
+        idx = None
+        if "pos" in cache:
+            idx = cache["index"].clone()  # (B,) this token's write index
+            bi = torch.arange(idx.shape[0], device=idx.device)
+            cache["pos"][bi, idx.long()] = batch["positions"].to(torch.int32)
+            cap = cache["pos"].shape[1]
+            cache["index"] = (idx + 1) % cap
         hidden, _, _ = self.forward(params, batch, "decode", cache, ctx, idx)
         return self._logits(params, hidden)[:, 0], cache
 
@@ -401,3 +642,49 @@ class DecoderLM(nn.Module):
         else:
             hidden = hidden[:, -1:]
         return self._logits(params, hidden)[:, 0], cache
+
+    def decode_chunk_recurrent(self, params, cache, batch,
+                               all_logits: bool = False):
+        """S tokens for the RECURRENT families (ssm, hybrid): the suffix
+        prefill of a prefix-store hit or a resumed session, and the verify
+        chunk of speculation. batch: tokens (B, S), absolute positions
+        (B, S) continuing the cached state (no padding: every token advances
+        the recurrence). Returns (last-token logits (B, V), cache), or every
+        position's logits (B, S, V) under ``all_logits``; the cache is
+        updated in place.
+
+        The cached state (conv window + SSM/LRU state) summarizes the whole
+        prefix at a point in time, so the suffix replays in ONE pass:
+        ``ssd_forward``/``rglru_forward`` fold the state into their scans.
+        The hybrid ring takes the "ringchunk" attention branch (old ring +
+        suffix KV under absolute-position window masking, exact for any
+        suffix length); ``pos``/``index`` advance after it."""
+        cfg = self.cfg
+        assert cfg.family in ("ssm", "hybrid"), (
+            "decode_chunk_recurrent seeds point-in-time recurrent state; "
+            f"use decode_chunk for {cfg.family}")
+        x, _ = self._embed_inputs(params, batch, "ringchunk")
+        b, s, _ = x.shape
+        positions = batch["positions"].to(torch.int32)  # (B, S)
+        if cfg.family == "ssm":
+            x, _ = self._ssm_stack(params, x, "ringchunk", cache)
+        else:
+            idx = cache["index"].clone()
+            cos, sin = self._rope(positions)
+            x, _ = self._hybrid_stack(params, x, positions, cos, sin,
+                                      "ringchunk", cache, idx)
+            # ring bookkeeping (invariant: position p lives at row p % w)
+            w = cache["pos"].shape[1]
+            if s < w:
+                bi = torch.arange(b, device=x.device)[:, None]
+                widx = (idx.long()[:, None]
+                        + torch.arange(s, device=x.device)) % w
+                cache["pos"][bi, widx] = positions
+            else:
+                cache["pos"].copy_(_ring_roll(positions[:, s - w:],
+                                              positions[:, s - w] % w, 1))
+            cache["index"] = ((idx + s) % w).to(torch.int32)
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        if all_logits:
+            return self._logits(params, x), cache
+        return self._logits(params, x[:, -1:])[:, 0], cache

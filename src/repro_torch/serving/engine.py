@@ -1,6 +1,6 @@
 """Live continuous-batching serving engine (runs real models). Counterpart
-of ``repro/serving/engine.py::TierEngine`` for the ``dense`` and ``vlm``
-families.
+of ``repro/serving/engine.py::TierEngine`` for the ``dense``, ``vlm``,
+``ssm`` and ``hybrid`` families.
 
 One engine per tier. Fixed-slot design: ``max_batch`` decode slots share a
 KV cache (per-slot write indices); finished slots are freed and refilled
@@ -18,6 +18,12 @@ table per slot (``ServingConfig(paged=True)``, the launcher default).
 * **Bucketed prefill**: waiting prompts are right-padded to power-of-two
   length buckets; all same-bucket requests prefill in ONE batched call and
   scatter into their slots (through the page tables on a paged engine).
+  Families whose cache embeds recurrent or ring state (ssm, hybrid) batch
+  exact same-length groups instead, keep dense per-slot state on a paged
+  engine (charged a flat number of pages a slot), freeze a dead slot's
+  whole row inside the fused block, park and store only whole processed
+  sequences, and replay a warm suffix or a speculative commit with
+  ``decode_chunk_recurrent``.
 * **Warm admission**: a prompt extending a parked session
   (``submit(session=...)``) or a stored prefix (``prefix_cache_mb > 0``)
   reuses the cached rows and prefills only its suffix, in one
@@ -65,6 +71,13 @@ from repro_torch.serving.paged import PagePool, pages_needed
 from repro_torch.serving.prefix import (ParkedSession, PrefixStore,
                                         SessionStore, extension_suffix,
                                         extras_fingerprint, prefix_buckets)
+
+
+# Families whose decode cache is a full-capacity absolute-position buffer:
+# right-padded bucket prefill is exact for them (pad entries are masked via
+# the ``pos`` leaf). ssm/hybrid carry recurrent/ring state that pads would
+# shift: they batch exact same-length groups instead.
+_PADDED_FAMILIES = ("dense", "vlm", "encdec")
 
 
 def _next_bucket(n: int, lo: int = 16) -> int:
@@ -460,6 +473,11 @@ class TierEngine:
             self._dense_specs[name] = (shape, leaf.dtype)
             self._row_specs[name] = (shape[:bax] + shape[bax + 1:],
                                      dtype_tag(leaf))
+        # prefix & session KV reuse: prefixes of admitted prompts are
+        # positionally addressable (sliceable at any boundary) only for the
+        # full-capacity absolute-position families; ssm/hybrid state is a
+        # point-in-time snapshot, so only whole processed sequences park
+        self._sliceable = self.cfg.family in ("dense", "vlm", "moe")
         self.prefix_store = PrefixStore(serving.prefix_cache_mb * 1e6,
                                         min_prefix=serving.prefix_min_tokens)
         self.sessions = SessionStore(serving.session_cache_mb * 1e6)
@@ -468,15 +486,33 @@ class TierEngine:
 
         # -- paged KV pool: the big KV leaves move into a shared physical
         # pool ((L, P, page, K, hd) + an int32 page table per slot), with
-        # copy-free CoW prefix sharing
+        # copy-free CoW prefix sharing; the recurrent families keep
+        # exact-length dense state but share the pool ACCOUNTING, so
+        # cross-family tiers report comparable headroom
         self.pool: Optional[PagePool] = None
         self._paged_names: tuple = ()
         self._pt: Optional[np.ndarray] = None  # host page tables (B, n_pt)
         self._slot_pages: List[List[int]] = [[] for _ in range(b)]
         self._page_pressure = False  # set when admission starved for pages
+        self._slot_page_charge = 1  # accounting charge (recurrent families)
         self._n_pt = 0
         self._slots_hw = 0  # dense-mode occupied-slot high-water (gauges)
-        if serving.paged:
+        if serving.paged and not self._sliceable:
+            # per-slot state is point-in-time (no positional pages): charge
+            # each slot the pages its largest time-axis leaf would occupy,
+            # so admission answers to the same pool
+            max_rows = 0
+            slot_bytes = 0.0
+            for name, leaf, bax in self._leaf_rows():
+                slot_bytes += leaf.nbytes / leaf.shape[bax]
+                sax = self._axis_by_name[name][1]
+                if sax >= 0 and name not in _BOOKKEEPING:
+                    max_rows = max(max_rows, leaf.shape[sax])
+            self._slot_page_charge = max(
+                1, pages_needed(max_rows, serving.kv_page_size, t))
+            self.pool = PagePool(serving.pool_pages, serving.kv_page_size,
+                                 page_bytes=slot_bytes / self._slot_page_charge)
+        elif serving.paged:
             ps = serving.kv_page_size
             self._n_pt = serving.pages_per_slot
             npages = serving.pool_pages + 1  # + pinned null page 0
@@ -504,8 +540,15 @@ class TierEngine:
             # never diverge: EVERY store removal (LRU eviction, overwrite,
             # explicit pop) decrefs through this hook
             self.prefix_store.lru.on_evict = self._on_prefix_evict
-        # context buckets need linear cache placement (pos == write index)
-        self._ctx_buckets = serving.context_buckets
+        # a recurrent family's warm suffix and speculative commits replay in
+        # one decode_chunk_recurrent pass (else token by token)
+        self._warm_chunk_recurrent = (serving.chunked_recurrent_suffix
+                                      and self.cfg.family in ("ssm", "hybrid"))
+        # context buckets need linear cache placement (pos == write index),
+        # which holds for the full-capacity-pos families only: ring windows
+        # (hybrid) and recurrent state (ssm) keep full-width attention
+        self._ctx_buckets = (serving.context_buckets
+                             and self.cfg.family in ("dense", "vlm", "moe"))
 
     # ------------------------------------------------------------------
     # hot-path blocks
@@ -537,10 +580,21 @@ class TierEngine:
         alive = budgets_d > 0
         produced = torch.zeros_like(budgets_d)
         bi = torch.arange(tok.shape[0], device=dev)
+        # ssm/hybrid carry recurrent state (and a ring whose write index
+        # wraps onto LIVE entries): a dead slot's decode would keep mutating
+        # it, corrupting the rows session parking extracts at finish. Their
+        # whole dead row is restored from a copy taken before each step; the
+        # full-capacity-pos families only need the pos/index freeze (dead
+        # writes land on pos=-1 entries, which reads mask out)
+        freeze_rows = self.cfg.family in ("ssm", "hybrid")
         out = []
         for _ in range(k_steps):
-            idx0 = cache["index"].clone()
-            old_pos = cache["pos"][bi, idx0.long()]
+            if freeze_rows:
+                before = [(name, leaf.clone())
+                          for name, leaf in _named_leaves(cache)]
+            else:
+                idx0 = cache["index"].clone()
+                old_pos = cache["pos"][bi, idx0.long()]
             logits, cache = model.decode_step(
                 params, cache, {"tokens": tok[:, None], "positions": pos},
                 ctx=ctx)
@@ -555,12 +609,20 @@ class TierEngine:
             alive2 = (alive & (sampled != self.eos_id) & (produced < budgets_d)
                       & (pos2 + 1 < max_seq))
             tok2 = torch.where(alive, sampled, tok)
-            # freeze write bookkeeping of dead slots: their KV writes land
-            # on an entry whose pos stays -1 (masked), instead of marching
-            # the write index over live-looking entries
-            new_pos = cache["pos"][bi, idx0.long()]
-            cache["pos"][bi, idx0.long()] = torch.where(alive, new_pos, old_pos)
-            cache["index"] = torch.where(alive, cache["index"], idx0)
+            if freeze_rows:
+                for name, old in before:
+                    leaf = _get(cache, name)  # index is a new tensor
+                    shape = [1] * leaf.dim()
+                    shape[self._axis_by_name[name][0]] = alive.shape[0]
+                    torch.where(alive.reshape(shape), leaf, old, out=leaf)
+            else:
+                # freeze write bookkeeping of dead slots: their KV writes
+                # land on an entry whose pos stays -1 (masked), instead of
+                # marching the write index over live-looking entries
+                new_pos = cache["pos"][bi, idx0.long()]
+                cache["pos"][bi, idx0.long()] = torch.where(alive, new_pos,
+                                                            old_pos)
+                cache["index"] = torch.where(alive, cache["index"], idx0)
             tok, pos, alive = tok2, pos2, alive2
             out.append(tok2)
         self.cache = cache
@@ -582,20 +644,21 @@ class TierEngine:
         dev = self.device
         logits, cache1 = self.model.prefill(self.params, batch,
                                             self.serving.max_seq)
-        total_d = torch.as_tensor(total, device=dev)
         slots_d = torch.as_tensor(slots, device=dev).long()
-        cap = cache1["pos"].shape[1]
-        # pad entries carry absolute positions >= the row's true length ->
-        # mark empty; the next write lands at the true end
-        pos1 = torch.where(cache1["pos"] < total_d[:, None], cache1["pos"], -1)
-        idx1 = (torch.clamp(total_d, max=cap) % cap).to(torch.int32)
+        if self.cfg.family in _PADDED_FAMILIES:
+            total_d = torch.as_tensor(total, device=dev)
+            cap = cache1["pos"].shape[1]
+            # pad entries carry absolute positions >= the row's true length
+            # -> mark empty; the next write lands at the true end
+            cache1["pos"] = torch.where(cache1["pos"] < total_d[:, None],
+                                        cache1["pos"], -1)
+            cache1["index"] = (torch.clamp(total_d, max=cap) % cap).to(
+                torch.int32)
         c = self.cache
-        c["pos"][slots_d] = pos1
-        c["index"][slots_d] = idx1
-        for name, one in _named_leaves(cache1["blocks"], "['blocks']"):
+        for name, one in _named_leaves(cache1):
             pool = _get(c, name)
             bax = self._axis_by_name[name][0]
-            if pt_rows is None:
+            if name not in self._paged_names:
                 pool[_at(bax, slots_d)] = one.to(pool.dtype)
             else:
                 page = self.serving.kv_page_size
@@ -904,18 +967,28 @@ class TierEngine:
             if e is None:
                 return None
             suffix = np.asarray(tokens[len(e.tokens):])
-            vis = self._prompt_prefix(job["extras"])
-            start = vis + len(e.tokens)
-            if start + len(suffix) + 1 < cap:
-                plan = {"kind": "prefix", "rows": e.data, "start": start,
-                        "time_len": start, "suffix": suffix,
-                        "cached": start}
-                if self._pt is not None:
-                    # paged entry: {"pages", "t_len"}; rows are gathered
-                    # (and full pages CoW-shared) at admit
-                    plan["rows"] = None
-                    plan["pages_entry"] = e.data
-                return plan
+            if e.sliceable:
+                vis = self._prompt_prefix(job["extras"])
+                start = vis + len(e.tokens)
+                if start + len(suffix) + 1 < cap:
+                    plan = {"kind": "prefix", "rows": e.data, "start": start,
+                            "time_len": start, "suffix": suffix,
+                            "cached": start}
+                    if self._pt is not None:
+                        # paged entry: {"pages", "t_len"}; rows are
+                        # gathered (and full pages CoW-shared) at admit
+                        plan["rows"] = None
+                        plan["pages_entry"] = e.data
+                    return plan
+            else:
+                # a whole processed sequence's point-in-time state
+                start = int(e.data["position"])
+                rows = e.data["rows"]
+                if (self._rows_compatible(rows)
+                        and start + len(suffix) + 1 < cap):
+                    return {"kind": "prefix", "rows": rows, "start": start,
+                            "time_len": None, "suffix": suffix,
+                            "cached": start}
         return None
 
     def _admit_warm_hits(self) -> None:
@@ -1010,9 +1083,11 @@ class TierEngine:
             _put(cache1, name, out.unsqueeze(bax))
         n = len(suffix)
         total = start + n
-        # pad to the power-of-two ladder (like bucketed prefill); pad writes
-        # land past the true end and are re-masked below
-        np_ = min(_next_bucket(n, lo=8), cap - start)
+        np_ = n
+        if self._sliceable:
+            # pad to the power-of-two ladder (like bucketed prefill); pad
+            # writes land past the true end and are re-masked below
+            np_ = min(_next_bucket(n, lo=8), cap - start)
         toks = np.full((np_,), suffix[-1], np.int32)
         toks[:n] = suffix
         positions = start + np.arange(np_, dtype=np.int32)
@@ -1023,8 +1098,20 @@ class TierEngine:
         if np_ > n:
             batch["lengths"] = torch.as_tensor([n], dtype=torch.int32,
                                                device=dev)
-        logits1, cache1 = self.model.decode_chunk(
-            self.params, cache1, batch, ctx=(teff if teff < cap else None))
+        if self._sliceable:
+            # ONE multi-token pass over the suffix: decode_chunk writes the
+            # new KV rows and attends the reused prefix by position
+            logits1, cache1 = self.model.decode_chunk(
+                self.params, cache1, batch,
+                ctx=(teff if teff < cap else None))
+        elif self._warm_chunk_recurrent:
+            # ONE pass seeding the ssd / rglru scans from the cached state
+            # (exact length: recurrent state admits no padding)
+            logits1, cache1 = self.model.decode_chunk_recurrent(
+                self.params, cache1, batch)
+        else:
+            # point-in-time state stepped token by token over the suffix
+            logits1, cache1 = self._step_suffix(cache1, toks, positions)
         first_logits = logits1.float().cpu().numpy()[0]
         if np_ > n:
             cache1["pos"] = torch.where(cache1["pos"] < total, cache1["pos"],
@@ -1034,9 +1121,24 @@ class TierEngine:
         self._start_seq(job, slot, total, first_logits, prefill_count=n,
                         warm=(plan["kind"], int(plan["cached"])))
 
+    def _step_suffix(self, cache1: Dict[str, Any], toks: np.ndarray,
+                     positions: np.ndarray):
+        """The model's own ``decode_step`` over a suffix, one token at a
+        time, on the batch-1 ``cache1`` (in place). Returns the last
+        token's logits (1, V) and the cache."""
+        for tok, pos in zip(toks, positions):
+            logits, cache1 = self.model.decode_step(
+                self.params, cache1,
+                {"tokens": torch.tensor([[int(tok)]], dtype=torch.int32,
+                                        device=self.device),
+                 "positions": torch.tensor([int(pos)], dtype=torch.int32,
+                                           device=self.device)})
+        return logits, cache1
+
     def _store_prefixes(self, slot: int, job: Dict[str, Any]) -> None:
         """Deposit a just-admitted slot's cache rows into the prefix store
-        at bucket-aligned prefix lengths."""
+        at bucket-aligned prefix lengths (sliceable families) or the exact
+        processed length (ssm/hybrid point-in-time state)."""
         if not self.prefix_store.enabled:
             return
         tokens = np.asarray(job["tokens"])
@@ -1045,6 +1147,16 @@ class TierEngine:
             return  # rolled/truncated cache rows don't map to positions
         fp = self._job_fp(job)
         store = self.prefix_store
+        if not self._sliceable:
+            if store.contains(tokens, fp):
+                return
+            rows = {name: leaf[_at(bax, slot)].clone()
+                    for name, leaf, bax in self._leaf_rows()}
+            nb = float(sum(r.nbytes for r in rows.values()))
+            store.insert(tokens, fp, nb,
+                         {"rows": rows, "position": int(vis + len(tokens))},
+                         sliceable=False)
+            return
         need = [L for L in prefix_buckets(len(tokens), store.min_prefix)
                 if not store.contains(tokens[:L], fp)]
         if not need:
@@ -1164,22 +1276,26 @@ class TierEngine:
     # (the keyed draw at the position the fused path would use), commits the
     # longest prefix on which the draft agreed plus the target's correction
     # token, and rolls the cache back past the first mismatch (pos/index
-    # rewind before the batch-1 insert; paged: decref the speculative tail
-    # pages). The committed stream is BY CONSTRUCTION the target-only
+    # rewind before the batch-1 insert; recurrent: re-feed the committed
+    # prefix from the untouched slot rows; paged: decref the speculative
+    # tail pages). The committed stream is BY CONSTRUCTION the target-only
     # stream, so speculation changes latency, never output.
     #
     # The model writes its cache in place, so the draft block and the
     # verify chunk run on a batch-1 CLONE of the slot's rows; the slot
     # itself changes only through an explicit ``_insert_cache``.
 
-    def _spec_chunkable(self) -> None:
-        """Speculation rewinds by position: recurrent state (the
-        re-feed branch of the JAX package's ``spec_verify``) is not
-        ported."""
-        if self.cfg.family not in ("dense", "vlm", "moe"):
-            raise NotImplementedError(
-                f"speculative verify for family {self.cfg.family!r} needs "
-                f"the recurrent re-feed: ROADMAP queue 1, item 11")
+    def _spec_chunk(self, cache1: Dict[str, Any],
+                    batch: Dict[str, torch.Tensor], teff: int):
+        """The verify chunk: every position's logits (1, S, V) of ``batch``
+        fed through ``cache1`` in one pass (in place)."""
+        cap = self.serving.max_seq
+        if self._sliceable:
+            return self.model.decode_chunk(
+                self.params, cache1, batch,
+                ctx=(teff if teff < cap else None), all_logits=True)
+        return self.model.decode_chunk_recurrent(self.params, cache1, batch,
+                                                 all_logits=True)
 
     def _spec_cache1(self, slot: int) -> Dict[str, Any]:
         """Batch-1 cache holding COPIES of ``slot``'s rows (gathered
@@ -1213,7 +1329,7 @@ class TierEngine:
         prefix store (always behind the frontier) are never touched.
         Returns False when the pool cannot grow."""
         if self._pt is None:
-            return True  # dense engine: no-op
+            return True  # dense engine / recurrent flat charge: no-op
         need = self._page_need(min(int(rows), self.serving.max_seq))
         have = self._slot_pages[slot]
         if need > len(have):
@@ -1380,7 +1496,6 @@ class TierEngine:
         and rolls back everything past the first mismatch. Returns the
         round's bookkeeping, or None when the slot is gone / nothing can
         verify."""
-        self._spec_chunkable()
         slot = self.spec_slot(rid)
         if slot is None:
             return None
@@ -1406,9 +1521,7 @@ class TierEngine:
                  "positions": torch.as_tensor(poss[None], device=dev)}
         teff = self._spec_teff(p + s + 1)
         cap = self.serving.max_seq
-        logits_all, cache2 = self.model.decode_chunk(
-            self.params, cache1, batch, ctx=(teff if teff < cap else None),
-            all_logits=True)
+        logits_all, cache2 = self._spec_chunk(cache1, batch, teff)
         logits_all = logits_all[0]  # (s, V)
         if self.temp > 0:
             sampled = keyed_sample(
@@ -1433,13 +1546,25 @@ class TierEngine:
                 break  # first mismatch: the tail is dead
         m = len(commits)  # cache rows now valid: [pending] + accepted
         commit_end = p + m
-        # rewind BEFORE the insert, as after a padded warm admission:
-        # rejected rows read as holes, the write index resumes at the
-        # committed frontier
-        cache2["pos"] = torch.where(cache2["pos"] < commit_end,
-                                    cache2["pos"], -1)
-        cache2["index"] = torch.full_like(cache2["index"], commit_end % cap)
-        self._insert_cache(cache2, slot)
+        if self._sliceable:
+            # rewind BEFORE the insert, as after a padded warm admission:
+            # rejected rows read as holes, the write index resumes at the
+            # committed frontier
+            cache2["pos"] = torch.where(cache2["pos"] < commit_end,
+                                        cache2["pos"], -1)
+            cache2["index"] = torch.full_like(cache2["index"],
+                                              commit_end % cap)
+            self._insert_cache(cache2, slot)
+        elif m == s:
+            self._insert_cache(cache2, slot)  # nothing to rewind
+        else:
+            # recurrent state is a point-in-time snapshot: it cannot
+            # rewind. Re-feed ONLY the committed prefix from the slot's
+            # untouched rows (the verify ran on a copy)
+            redo = {"tokens": batch["tokens"][:, :m],
+                    "positions": batch["positions"][:, :m]}
+            _, redo1 = self._spec_chunk(self._spec_cache1(slot), redo, teff)
+            self._insert_cache(redo1, slot)
         self.positions[slot] = commit_end
         self._spec_resize_pages(slot, commit_end)  # decref rejected tail
         self.accepted_tokens += m - 1
@@ -1475,7 +1600,6 @@ class TierEngine:
         pending token. The rejected tail was never installed here, so
         nothing rewinds. Returns False when the draft cache is out of room
         (the caller stops speculating)."""
-        self._spec_chunkable()
         slot = self.spec_slot(rid)
         if slot is None:
             return False
@@ -1493,9 +1617,14 @@ class TierEngine:
         batch = {"tokens": torch.as_tensor(feed[None], device=dev),
                  "positions": torch.as_tensor(poss[None], device=dev)}
         teff = self._spec_teff(p + m + 1)
-        _, cache1 = self.model.decode_chunk(
-            self.params, self._spec_cache1(slot), batch,
-            ctx=(teff if teff < self.serving.max_seq else None))
+        cache1 = self._spec_cache1(slot)
+        if self._sliceable:
+            _, cache1 = self.model.decode_chunk(
+                self.params, cache1, batch,
+                ctx=(teff if teff < self.serving.max_seq else None))
+        else:
+            _, cache1 = self.model.decode_chunk_recurrent(self.params, cache1,
+                                                          batch)
         self._insert_cache(cache1, slot)
         st.generated.extend(committed)
         self.positions[slot] = p + m
@@ -1542,6 +1671,11 @@ class TierEngine:
     # -- paged KV pool ------------------------------------------------------
 
     def _page_need(self, total_rows: int) -> int:
+        """Pages a request occupying ``total_rows`` cache rows reserves.
+        Recurrent families charge a fixed per-slot amount (their state has
+        no positional pages)."""
+        if not self._sliceable:
+            return self._slot_page_charge
         return pages_needed(total_rows, self.serving.kv_page_size,
                             self.serving.max_seq)
 
@@ -1552,7 +1686,7 @@ class TierEngine:
         if n <= 0:
             return []
         pool = self.pool
-        while not pool.can_alloc(n):
+        while not pool.can_alloc(n) and self._pt is not None:
             if self.prefix_store.evict_oldest() is None:
                 break
         return pool.alloc(n)
@@ -1747,12 +1881,16 @@ class TierEngine:
             if not jobs:
                 return
         del self.waiting[:len(jobs)]
+        pad_ok = self.cfg.family in _PADDED_FAMILIES
         groups: Dict[tuple, List[dict]] = {}
         for job in jobs:
             n = len(job["tokens"])
             prefix = self._prompt_prefix(job["extras"])
-            bucket = min(_next_bucket(n),
-                         max(n, self.serving.max_seq - prefix))
+            if pad_ok:
+                bucket = min(_next_bucket(n),
+                             max(n, self.serving.max_seq - prefix))
+            else:
+                bucket = n  # exact-length groups (ssm / hybrid)
             sig = (bucket, tuple(sorted(
                 (k, np.asarray(v).shape, str(np.asarray(v).dtype))
                 for k, v in job["extras"].items())))

@@ -2,9 +2,9 @@
 same (converted) weights: per-token and fused decode, dense and paged KV
 pools, prompts across two length buckets, a vlm request with patches,
 prefill attention ``auto`` on both sides and JAX ``pallas`` against port
-``torch``; the port engine's snapshot/restore round trip; and which engine
-paths are live and which still raise."""
-import dataclasses
+``torch``, and the recurrent families (hybrid: a prompt past the reduced
+window of 32; ssm); the port engine's snapshot/restore round trip; and the
+recurrent re-feed of speculative verify."""
 
 import numpy as np
 import pytest
@@ -33,7 +33,8 @@ IMPLS = {"auto": ("auto", "auto"), "pallas": ("pallas", "torch")}
 
 @pytest.fixture(scope="module", params=[
     ("qwen2-vl-2b", "auto"), ("qwen3-0.6b", "auto"),
-    ("qwen2-vl-2b", "pallas"), ("qwen3-0.6b", "pallas")],
+    ("qwen2-vl-2b", "pallas"), ("qwen3-0.6b", "pallas"),
+    ("recurrentgemma-9b", "auto"), ("mamba2-2.7b", "auto")],
     ids=lambda p: p[0] if p[1] == "auto" else f"{p[0]}-pallas-torch")
 def models(request):
     name, impl = request.param
@@ -117,9 +118,11 @@ def test_engine_keeps_attn_impl(models):
 
 
 def test_unported_engine_paths_raise_with_roadmap_item(models):
-    """Only speculation's recurrent re-feed (families not ported yet) still
-    raises with its ROADMAP item; speculation on this model, migration,
-    sessions and the prefix store are live (tests/test_torch_speculative.py,
+    """No engine path raises for this model: speculation (its recurrent
+    re-feed included: a verify round that rejects part of its draft
+    re-feeds the committed prefix from the slot's untouched rows, and the
+    request then decodes the tokens of a plain run), migration, sessions
+    and the prefix store are live (tests/test_torch_speculative.py,
     tests/test_torch_sessions.py and tests/test_torch_migration.py hold
     them to the JAX package)."""
     _, _, tm, tp = models
@@ -127,10 +130,22 @@ def test_unported_engine_paths_raise_with_roadmap_item(models):
     with pytest.raises(MigrationError, match="holds no decode slot"):
         eng.extract_slot(0)
     assert eng.spec_draft(0, 4) is None  # live: no slot serves rid 0
-    recurrent = TierEngine(tm, tp, ServingConfig(max_batch=1, max_seq=64))
-    recurrent.cfg = dataclasses.replace(recurrent.cfg, family="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        recurrent.spec_verify(0, [5])
+    assert eng.spec_verify(0, [5]) is None
+    prompt = np.arange(4, 44, dtype=np.int32)  # past the hybrid window
+    plain = TierEngine(tm, tp, ServingConfig(max_batch=1, max_seq=64),
+                       eos_id=-1)
+    plain.submit(0, prompt, max_new=10)
+    want = plain.run_until_drained()[0].generated
+    spec = TierEngine(tm, tp, ServingConfig(max_batch=1, max_seq=64),
+                      eos_id=-1)
+    spec.submit(0, prompt, max_new=10)
+    spec._admit()
+    spec.spec_begin(0)
+    wrong = (want[2] + 1) % tm.cfg.vocab_size
+    out = spec.spec_verify(0, [want[1], wrong, want[3]])
+    assert out["committed"] == want[1:3] and out["rolled_back"] == 2
+    spec.spec_release(0)
+    assert spec.run_until_drained()[0].generated == want
     eng.submit(0, np.arange(4, 20, dtype=np.int32), max_new=2, session="s")
     eng.run_until_drained()
     assert eng.parks == 1 and "s" in eng.sessions

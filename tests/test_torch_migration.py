@@ -3,8 +3,9 @@ between the port's paged and dense engines at temperature 0 and 0.7, in
 both directions between the JAX package's TierEngine and the port's
 (float32, temperature 0, reduced qwen2-vl-2b, same converted weights), a
 bf16 payload byte for byte the JAX package's, the wire and injection's
-negative paths (each leaving the engine untouched), and snapshot/restore
-carrying the per-slot sampling keys."""
+negative paths (each leaving the engine untouched), snapshot/restore
+carrying the per-slot sampling keys, and a hybrid (recurrent) slot moved
+between the packages in both directions."""
 import dataclasses
 import json
 import struct
@@ -399,3 +400,37 @@ def test_snapshot_restore_carries_slot_keys(models):
     eng.run_until_drained()
     again = {s.rid: list(s.generated) for s in eng.finished[k1:]}
     assert again == first and len(first) == 3
+
+
+@pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
+def test_hybrid_slot_migrates_between_packages(family_model, direction):
+    """A hybrid (RecurrentGemma) slot, its ring wrapped (a 40-token prompt
+    over the reduced window of 32), moves between the packages through the
+    wire mid-decode and finishes with the donor package's unmigrated
+    tokens: the ring KV, the RG-LRU conv windows and f32 states travel."""
+    cfg, jp = family_model("hybrid")
+    tm = build_model(reduced_config(cfg.name).replace(dtype="float32"),
+                     device="cpu")
+    tp = params_from_numpy(jax.device_get(jp), "cpu")
+    sv = dict(max_batch=2, max_seq=96, fused_steps=4)
+    prompt = (np.arange(40) % 300 + 4).astype(np.int32)
+
+    def make(pkg):
+        if pkg == "jax":
+            return JTierEngine(j_build(cfg), jp, JServingConfig(**sv))
+        return TierEngine(tm, tp, ServingConfig(**sv))
+
+    src, dst = direction.split("-to-")
+    ref = make(src)
+    ref.submit(0, prompt, max_new=16)
+    want = _drained(ref)[0]
+    donor = make(src)
+    donor.submit(0, prompt, max_new=16)
+    donor.step()
+    wire = donor.extract_slot(0).to_bytes()
+    payload = (JSlotPayload if dst == "jax" else SlotPayload).from_bytes(wire)
+    assert any("rglru" in name for name in payload.leaves)
+    target = make(dst)
+    target.inject_slot(payload)
+    assert _drained(target)[0] == want
+    assert target.prefill_tokens == 0

@@ -142,8 +142,9 @@ def test_out_of_vocab_ids_embed_as_nan_like_jnp_take(pair):
 def test_build_model_refuses_unported_family():
     from repro_torch.configs import get_config
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("mamba2-2.7b"), device="cpu")
+    for arch in ("qwen3-moe-235b-a22b", "whisper-small"):  # moe, encdec
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(get_config(arch), device="cpu")
 
 
 def test_build_model_validates_attn_impl(pair):

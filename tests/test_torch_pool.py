@@ -2,9 +2,10 @@
 speculative lifecycle through its runtime, against the JAX package:
 
 * process replicas (spawned workers on ``device="cpu"``) give the tokens
-  of a local engine, a killed worker's rids are reported lost and its
-  sibling serves them, and a speculated request behind process-only pools
-  falls back to plain decode;
+  of a local engine, a recurrent (hybrid) replica's included, a killed
+  worker's rids are reported lost and its sibling serves them, and a
+  speculated request behind process-only pools falls back to plain
+  decode;
 * drop/dup/reorder chaos on a replica's event stream leaves the tokens
   JAX's honest stream delivers (converted weights);
 * a live byzantine storm routes and decodes as the JAX package's honest
@@ -14,7 +15,7 @@ speculative lifecycle through its runtime, against the JAX package:
   port's simulator and its live server, and with the same routes, drafted
   and accepted counts as the JAX package's live server.
 
-Four worker processes in all."""
+Five worker processes in all."""
 import copy
 import time
 
@@ -437,3 +438,28 @@ def test_speculative_lifecycle_sim_live_and_jax_agree():
     assert server.pools["cloud"].counters()["drafted_tokens"] == 0
     for pool in server.pools.values():
         assert not pool.transports[0].engine.rids()  # no shadow survives
+
+
+def test_recurrent_process_replica_matches_local():
+    """A spawned replica of a recurrent model (reduced recurrentgemma-9b,
+    hybrid: RG-LRU state and a ring-window cache; a prompt past its window
+    of 32) serves the tokens of a local engine built from the same seed,
+    paged (the flat per-slot page charge) as the pool builds it."""
+    sv = ServingConfig(max_batch=2, max_seq=96, paged=True, kv_page_size=16)
+    jobs = [(rid, _prompt(20 + 12 * rid, base=rid), 8) for rid in range(3)]
+    model = build_model(reduced_config("recurrentgemma-9b").replace(
+        dtype="float32"), device="cpu")
+    ref = TierEngine(model, model.init(0), sv)
+    for rid, toks, max_new in jobs:
+        ref.submit(rid, toks, max_new=max_new)
+    want = {s.rid: list(s.generated) for s in ref.run_until_drained()}
+    pool = EnginePool("edge", [ProcessTransport(ReplicaSpec(
+        model="recurrentgemma-9b", serving=sv, param_seed=0,
+        name="edge/0", device="cpu"))])
+    try:
+        for rid, toks, max_new in jobs:
+            pool.submit_to(0, rid, toks, max_new=max_new, extras={},
+                           deadline=None, session=None)
+        assert _drain(pool) == want
+    finally:
+        pool.close()

@@ -29,7 +29,7 @@ from repro_torch.serving.engine import SlotPayload, TierEngine  # noqa: E402
 from repro_torch.serving.tiers import ClusterServer  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "ssm", "hybrid")
 
 
 @pytest.fixture(scope="module")

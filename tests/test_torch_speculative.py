@@ -10,7 +10,6 @@ commits what the JAX co-drive commits. At temperature 0.7 the port is held
 to itself (its keyed draws are not JAX's threefry stream): speculative
 tokens equal its fused tokens. A hypothesis fuzz sweeps k x mismatch
 position x pool design."""
-import dataclasses
 
 import numpy as np
 import pytest
@@ -28,7 +27,7 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import TierEngine  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "ssm", "hybrid")
 PAGED = dict(paged=True, kv_page_size=32, prefix_cache_mb=0,
              session_cache_mb=0)
 MAX_NEW = 12
@@ -337,14 +336,18 @@ def test_spec_on_a_prefix_hit_keeps_the_shared_pages(port_model):
 
 
 def test_spec_refuses_recurrent_families(port_model):
-    """The recurrent re-feed branch is not ported: it raises, naming its
-    ROADMAP item, and is never skipped."""
-    eng = _port(port_model, "dense")
-    eng.cfg = dataclasses.replace(eng.cfg, family="ssm")
-    for call in (lambda: eng.spec_verify(0, [1]),
-                 lambda: eng.spec_sync(0, [1])):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+    """Nothing refuses the recurrent families any more: on an ssm engine
+    verify and sync of an unknown rid return None / False, as on a dense
+    one, and a live slot verifies (the re-feed branch; the families' JAX
+    parity is ``test_spec_commits_the_jax_stream``)."""
+    eng = _port(port_model, "ssm")
+    assert eng.spec_verify(0, [1]) is None
+    assert eng.spec_sync(0, [1]) is False
+    toks, _ = _inputs(eng.cfg)
+    eng.submit(0, toks, max_new=MAX_NEW)
+    eng._admit()
+    out = eng.spec_verify(0, [1, 2, 3])
+    assert out is not None and 1 <= len(out["committed"]) <= 4
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,9 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      the draft block's batch), and at the zoo's other attention shapes
      (hd 96 32/32, hd 192 96/8, hd 256 16/1 with a wrapped ring of 2048
      rows under window 2048 and flash at S=2500 under that window, hd 128
-     64/4, the small hd at group 16); time the
+     64/4, whisper-small's hd 64 12/12: decode over 1500 frames with the
+     query at 10**9 and over a 448-row self cache, flash non-causal at
+     S=1500 and causal at S=16, the small hd at group 16); time the
      kernel, the plain version and, where one PyTorch call computes the same
      function, that call (the port never calls it). Decode is timed as the
      decode loop meets it: launches rotate over a stacked cache larger than
@@ -26,7 +28,8 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      (which proves the kernel can be captured; its outputs must equal eager
      calls), with SDPA timed the same way in turns and the eager wall per
      call beside it, at T=384 and T=4096, and at phi-3-vision's,
-     recurrentgemma's and qwen3-moe's decode and prefill shapes;
+     recurrentgemma's, qwen3-moe's and whisper-small's decode and prefill
+     shapes (the encoder's non-causal S=1500 against SDPA, is_causal=False);
   4. at full width and depth (qwen2-vl-2b edge, qwen2.5-vl-7b cloud, bf16,
      random weights from a seed): one prefill batch of the serving shapes
      through attn_impl "auto" and "cuda" on the same weights (logit
@@ -89,6 +92,23 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      three requests of the launcher's mix through ClusterServer on a paged
      pool under "cuda"; fails unless both attention kernels launched at
      hd 96;
+  12. the MoE and encoder-decoder families: (a) qwen3-moe-235b-a22b at full
+     width, its depth cut to 8 of 94 layers (bf16, random weights, moe_impl
+     "auto" = dense): a 320-token prefill under "cuda" against "auto" and
+     under moe_impl "dropping" beside "dense" (CUDA events), four requests
+     on a paged TierEngine under "cuda", failing unless the flash and the
+     paged decode kernel launched at (hd 128, group 16), each request had
+     its own prefill group and the drained pool holds no page; one decode
+     step split into the MoE blocks and attention; (b) whisper-small at full
+     width and depth: encoder output and prefill logits "cuda" against
+     "auto", four requests (1500 x 80 frames each) on a dense and on a
+     paged TierEngine, failing unless the flash kernel launched non-causal
+     at (hd 64, group 1, S=1500) and the dense decode kernel at T=1500 (the
+     cross read, query at 10**9) and at the 448-row self cache; (c) reduced
+     f32 qwen3-moe, kimi-k2 and whisper-small engines on the card decode
+     the CPU's tokens (plain versions), fused and per token, paged and
+     dense; for the MoE pair a resumed session and a paged <-> dense
+     migration equal cold serving;
   7. ``python -m repro_torch.launch.serve --requests 4 --max-new 4``, then
      with ``--sessions 2 --turns 2 --prefix-cache-mb 64 --migrate``, which
      must print its ``sessions:`` line (phase 8 (d)), with ``--speculate
@@ -97,7 +117,7 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      phase 9 (d)). Phase 7 runs last.
 
 The line before the last is the kernels' JSON record (launches: phases 4,
-5, 8, 9, 10 and 11 together; each attention kernel's zoo shapes timed
+5, 8, 9, 10, 11 and 12 together; each attention kernel's zoo shapes timed
 under "shapes", and every (dtype, hd, group) held in phase 3 with its worst
 error under "instantiations"); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -424,14 +444,16 @@ KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 def _decode_case(b, h, kh, hd, t_cache, t_ctx, dtype, gen, *, fill=None,
                  dead_slot=False, window=None, live=None, layers=0,
-                 ring=None):
+                 ring=None, cross=False):
     """Dense-cache inputs: k/v (B, t_cache, K, hd), attended view t_ctx.
     ``live=(lo, hi)``: only rows lo..hi-1 hold positions (0..), every other
     entry is empty. ``ring=last``: a wrapped ring of t_cache rows (the
     hybrid family's window cache), position p at row p % t_cache for the
     t_cache positions up to ``last``, the query at ``last``. ``layers``: k/v
     are layer 0 of a stacked cache (2, layers, B, t_cache, K, hd) of k and
-    v, returned as the last item."""
+    v, returned as the last item. ``cross``: every row holds a frame
+    (positions 0..t_cache-1) and the query sits at position 10**9, as an
+    encoder-decoder's cross-attention decode reads its cache."""
     import torch
 
     q = _rand((b, 1, h, hd), dtype, gen)
@@ -448,6 +470,9 @@ def _decode_case(b, h, kh, hd, t_cache, t_ctx, dtype, gen, *, fill=None,
         lo, hi = live
         pos[:, lo:hi] = torch.arange(hi - lo, dtype=torch.int32, device="cuda")
         fill = hi - lo
+    elif cross:
+        pos[:] = torch.arange(t_cache, dtype=torch.int32, device="cuda")
+        fill = 10 ** 9 + 1
     else:
         pos[:, :fill] = torch.arange(fill, dtype=torch.int32, device="cuda")
     pq = torch.full((b,), fill - 1, dtype=torch.int32, device="cuda")
@@ -515,7 +540,10 @@ def _hold(label, got, want, dtype, v_rows=None):
 # The attention shapes of the model zoo beyond the serving pair's hd 128 /
 # group <= 8: phi-3-vision (hd 96, MHA), nemotron-4 (hd 192, group 12),
 # recurrentgemma (hd 256, MQA group 16, window 2048 over a ring of 2048
-# rows), qwen3-moe (hd 128, group 16), and the small hd at group 16.
+# rows), qwen3-moe (hd 128, group 16), whisper-small (hd 64, MHA: the
+# cross-attention decode over 1500 frames with the query at 10**9, the
+# self-attention decode over its 448-row cache, the encoder's non-causal
+# S=1500 and the decoder's causal prefill), and the small hd at group 16.
 ZOO_DECODE_DENSE = [
     # (label, b, h, kh, hd, t_cache, t_ctx, kwargs)
     ("phi-3-vision hd96 32/32", 4, 32, 32, 96, 1024, 640, {}),
@@ -528,6 +556,11 @@ ZOO_DECODE_DENSE = [
     ("recurrentgemma hd256 ring, one split", 2, 16, 1, 256, 2048, 2048,
      {"ring": 2500, "window": 2048, "split_rows": 4096}),
     ("qwen3-moe hd128 64/4", 4, 64, 4, 128, 512, 384, {}),
+    ("whisper cross hd64 12/12 T=1500 q at 10**9", 4, 12, 12, 64, 1500,
+     1500, {"cross": True}),
+    ("whisper cross hd64 12/12 B=1", 1, 12, 12, 64, 1500, 1500,
+     {"cross": True}),
+    ("whisper self hd64 12/12 T=448", 4, 12, 12, 64, 448, 448, {"fill": 40}),
     ("hd256 4/1 window 48", 2, 4, 1, 256, 128, 100, {"window": 48}),
     ("hd32 16/1", 2, 16, 1, 32, 64, 48, {}),
     ("hd64 32/2", 2, 32, 2, 64, 128, 97, {}),
@@ -544,11 +577,13 @@ ZOO_DECODE_PAGED = [
     ("qwen3-moe hd128 64/4", 4, 64, 4, 128, 64, 8, 384, {}),
     ("hd32 16/1 page 16", 2, 16, 1, 32, 16, 4, 48, {}),
 ]
-# timed, B=4: (label, h, kh, hd, T, window)
+# timed, B=4: (label, h, kh, hd, T, window, dense cache only, cross read)
 ZOO_DECODE_TIMED = [
-    ("phi-3-vision", 32, 32, 96, 640, None),
-    ("recurrentgemma ring", 16, 1, 256, 2048, 2048),
-    ("qwen3-moe", 64, 4, 128, 384, None),
+    ("phi-3-vision", 32, 32, 96, 640, None, False, False),
+    ("recurrentgemma ring", 16, 1, 256, 2048, 2048, True, False),
+    ("qwen3-moe", 64, 4, 128, 384, None, False, False),
+    ("whisper cross", 12, 12, 64, 1500, None, True, True),
+    ("whisper self", 12, 12, 64, 448, None, True, False),
 ]
 ZOO_FLASH = [
     # (label, b, s, h, kh, hd, causal, window, q layout)
@@ -561,11 +596,16 @@ ZOO_FLASH = [
      2048, "contiguous"),
     ("hd256 q (B,H,S,hd) view", 2, 130, 16, 1, 256, True, None, "bhsd"),
     ("qwen3-moe hd128 64/4", 2, 320, 64, 4, 128, True, None, "contiguous"),
+    ("whisper encoder hd64 12/12 non-causal S=1500", 2, 1500, 12, 12, 64,
+     False, None, "contiguous"),
+    ("whisper decoder hd64 12/12 causal S=16", 4, 16, 12, 12, 64, True, None,
+     "contiguous"),
 ]
-# timed: (label, b, s, h, kh, hd, window)
+# timed: (label, b, s, h, kh, hd, window, causal)
 ZOO_FLASH_TIMED = [
-    ("phi-3-vision", 4, 640, 32, 32, 96, None),
-    ("recurrentgemma", 1, 3000, 16, 1, 256, 2048),
+    ("phi-3-vision", 4, 640, 32, 32, 96, None, True),
+    ("recurrentgemma", 1, 3000, 16, 1, 256, 2048, True),
+    ("whisper encoder", 4, 1500, 12, 12, 64, None, False),
 ]
 
 
@@ -639,9 +679,10 @@ def check_decode_dense(records):
     for t in (384, 4096):
         for label, h, kh in (("edge", 12, 2), ("cloud", 28, 4)):
             time_decode(records, False, label, h, kh, t, worst, gen)
-    for label, h, kh, hd, t, window in ZOO_DECODE_TIMED:
+    for label, h, kh, hd, t, window, _, cross in ZOO_DECODE_TIMED:
         time_decode(records, False, label, h, kh, t, worst, gen, hd=hd,
-                    window=window, sweep=(32, 64, 128, 256, 512))
+                    window=window, sweep=(32, 64, 128, 256, 512),
+                    cross=cross)
     records["decode_attention"]["instantiations"] = _instantiations(held)
 
 
@@ -696,22 +737,23 @@ def check_decode_paged(records):
     for t in (384, 4096):
         for label, h, kh in (("edge", 12, 2), ("cloud", 28, 4)):
             time_decode(records, True, label, h, kh, t, worst, gen)
-    for label, h, kh, hd, t, window in ZOO_DECODE_TIMED:
-        if window is None:  # the ring (hybrid) is a dense cache
+    for label, h, kh, hd, t, window, dense_only, _ in ZOO_DECODE_TIMED:
+        if not dense_only:  # the ring and encdec's caches stay dense
             time_decode(records, True, label, h, kh, t, worst, gen, hd=hd)
     records["decode_attention_paged"]["instantiations"] = _instantiations(
         held)
 
 
 def time_decode(records, paged, label, h, kh, t, worst, gen, hd=128,
-                window=None, sweep=()):
+                window=None, sweep=(), cross=False):
     """Time one decode shape (B=4, bf16, hd 128 unless given) the way the
     decode loop meets it: launches rotate over the layers of a stacked cache
     that does not fit the 50 MB L2 (28 layers at the serving T=384 of 512;
     otherwise enough caches to pass 100 MB). The zoo's shapes (other hd and
     groups) are added to the kernel's record under "shapes". ``sweep``:
     context rows per split to time the dense kernel at besides the
-    wrapper's choice. Device time per call from a replayed
+    wrapper's choice. ``cross``: the encoder-decoder's cross read (every
+    row a frame, the query at 10**9). Device time per call from a replayed
     CUDA graph (the kernel, then SDPA on the same dense rows, in turns:
     kernel, SDPA, SDPA, kernel), the eager wall per call beside it; the
     graph's outputs must equal eager calls bitwise."""
@@ -742,7 +784,8 @@ def time_decode(records, paged, label, h, kh, t, worst, gen, hd=128,
     else:
         tc = max(512, t)
         q, _, _, pq, pos, _, stack = _decode_case(b, h, kh, hd, tc, t, dt,
-                                                  gen, layers=layers)
+                                                  gen, layers=layers,
+                                                  cross=cross)
         pos = pos[:, :t]
         kv = [(stack[0, i][:, :t], stack[1, i][:, :t]) for i in range(layers)]
         fns = [lambda i=i: decode_attention_cuda(q, *kv[i], pq, pos,
@@ -788,7 +831,8 @@ def time_decode(records, paged, label, h, kh, t, worst, gen, hd=128,
     if hd != 128 or h // kh > 8:
         records[name].setdefault("shapes", []).append({
             "shape": f"{label} B=4 T={t} hd {hd} group {h // kh}"
-                     + (f" window {window}" if window else ""),
+                     + (f" window {window}" if window else "")
+                     + (" query at 10**9" if cross else ""),
             "device_ms": dev, "eager_ms": eager, "plain_ms": plain_ms,
             "bound_ms": bd, "bound_by": by, "library_ms": lib,
             "share_of_bound": bd / dev})
@@ -908,14 +952,15 @@ def check_flash(records):
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "device_ms": main["device_ms"], "eager_ms": main["eager_ms"],
-        "shapes": shapes + [time_flash(lb, b, s, h, kh, gen, hd=hd, window=w)
-                            for lb, b, s, h, kh, hd, w in ZOO_FLASH_TIMED],
+        "shapes": shapes + [time_flash(lb, b, s, h, kh, gen, hd=hd, window=w,
+                                       causal=c)
+                            for lb, b, s, h, kh, hd, w, c in ZOO_FLASH_TIMED],
         "instantiations": _instantiations(held)}
 
 
-def time_flash(label, b, s, h, kh, gen, hd=128, window=None):
-    """Time one prefill shape (bf16, hd 128 unless given, causal, optional
-    window) the way a prefill meets it: launches rotate over 28 layers'
+def time_flash(label, b, s, h, kh, gen, hd=128, window=None, causal=True):
+    """Time one prefill shape (bf16, hd 128 unless given, causal unless
+    told otherwise, optional window) the way a prefill meets it: launches rotate over 28 layers'
     distinct (q, k, v), more bytes than the 50 MB L2 holds. Device time per call from a replayed CUDA graph
     of one rotation (the kernel, then SDPA on the same tensors, in turns:
     kernel, SDPA, SDPA, kernel), the eager wall per call beside it; the
@@ -930,12 +975,12 @@ def time_flash(label, b, s, h, kh, gen, hd=128, window=None):
     qs = _rand((layers, b, s, h, hd), dt, gen)
     kvs = _rand((layers, 2, b, s, kh, hd), dt, gen)
     fns = [lambda i=i: flash_attention_cuda(qs[i], kvs[i, 0], kvs[i, 1],
-                                            window=window)
+                                            causal=causal, window=window)
            for i in range(layers)]
     if window is None:
         sdpa = [lambda i=i: F.scaled_dot_product_attention(
             qs[i].transpose(1, 2), kvs[i, 0].transpose(1, 2),
-            kvs[i, 1].transpose(1, 2), is_causal=True, enable_gqa=True)
+            kvs[i, 1].transpose(1, 2), is_causal=causal, enable_gqa=True)
             for i in range(layers)]
     else:
         r = torch.arange(s, device="cuda")
@@ -959,18 +1004,24 @@ def time_flash(label, b, s, h, kh, gen, hd=128, window=None):
     plain_ms = None
     if s <= 1024:
         plain = [lambda i=i: flash_attention_plain(qs[i], kvs[i, 0],
-                                                   kvs[i, 1], window=window)
+                                                   kvs[i, 1], causal=causal,
+                                                   window=window)
                  for i in range(layers)]
         plain_ms = graph_time_ms(plain, 2)[0]
     nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
-    # the pairs this run attends: causal, within the window if any
-    pairs = (s * (s + 1) / 2 if window is None else
-             sum(min(r + 1, window) for r in range(s)))
+    # the pairs this run attends: causal (or all), within the window if any
+    if not causal:
+        pairs = float(s * s)
+    elif window is None:
+        pairs = s * (s + 1) / 2
+    else:
+        pairs = sum(min(r + 1, window) for r in range(s))
     flops = 4.0 * b * h * hd * pairs
     bd, by = bound_ms(nbytes, flops, "bfloat16")
     shape = (f"{label} R={b} S={s}" + (f" hd {hd}" if hd != 128 else "")
              + (f" group {h // kh}" if h // kh > 8 or hd != 128 else "")
-             + (f" window {window}" if window else ""))
+             + (f" window {window}" if window else "")
+             + ("" if causal else " non-causal"))
     print(f"  flash_attention {shape} bf16 ({layers} layers rotated): device "
           f"{dev * 1e3:.2f} us ({k1 * 1e3:.2f}, {k2 * 1e3:.2f}), eager wall "
           f"{eager * 1e3:.2f} us, sdpa device {lib * 1e3:.2f} us "
@@ -2026,10 +2077,10 @@ def phase_spec(records, built):
 
 
 def _serve_direct(eng, prompts, label):
-    """Serve ``(tokens, max_new)`` prompts on one engine, the launch counts
-    reset just before; fail unless every request finishes with its tokens
-    in the vocabulary. Returns (tokens by rid, counts, counts by shape,
-    wall seconds)."""
+    """Serve ``(tokens, max_new)`` or ``(tokens, max_new, extras)`` prompts
+    on one engine, the launch counts reset just before; fail unless every
+    request finishes with its tokens in the vocabulary. Returns (tokens by
+    rid, counts, counts by shape, wall seconds)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -2037,8 +2088,8 @@ def _serve_direct(eng, prompts, label):
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    for rid, (toks, max_new) in enumerate(prompts):
-        eng.submit(rid, toks, max_new=max_new)
+    for rid, (toks, max_new, *extras) in enumerate(prompts):
+        eng.submit(rid, toks, max_new=max_new, extras=dict(*extras))
     done = {s.rid: list(s.generated) for s in eng.run_until_drained()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2046,7 +2097,7 @@ def _serve_direct(eng, prompts, label):
     vocab = eng.cfg.vocab_size
     if sorted(done) != list(range(len(prompts))):
         fail(f"{label}: finished {sorted(done)} of {len(prompts)}")
-    for rid, (_, max_new) in enumerate(prompts):
+    for rid, (_, max_new, *_) in enumerate(prompts):
         toks = done[rid]
         if not toks or not all(0 <= t < vocab for t in toks):
             fail(f"{label}: rid {rid} tokens out of the vocabulary: {toks}")
@@ -2327,6 +2378,426 @@ def phase_zoo_serve(records):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the MoE and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+
+class _KernelShapes:
+    """Record the shape of every attention kernel launch while in use: the
+    flash kernel's (hd, group, causal, S) and the dense decode kernel's
+    (hd, group, T, query at 10**9). It wraps the kernel entry points the
+    ``ops`` wrappers call, so the wrappers' launch counts stay theirs."""
+
+    def __init__(self):
+        self.flash, self.decode = {}, {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._saved = (ops.flash_attention_cuda, ops.decode_attention_cuda)
+        flash, decode = self._saved
+
+        def flash_seen(q, k, v, *, causal=True, window=None, **kw):
+            out = flash(q, k, v, causal=causal, window=window, **kw)
+            key = (q.shape[-1], q.shape[-2] // k.shape[-2], causal,
+                   q.shape[1])
+            self.flash[key] = self.flash.get(key, 0) + 1
+            return out
+
+        def decode_seen(q, k, v, pos_q, pos_cache, **kw):
+            out = decode(q, k, v, pos_q, pos_cache, **kw)
+            key = (q.shape[-1], q.shape[-2] // k.shape[-2], k.shape[1],
+                   bool((pos_q >= 10 ** 9).all()))
+            self.decode[key] = self.decode.get(key, 0) + 1
+            return out
+
+        ops.flash_attention_cuda, ops.decode_attention_cuda = (flash_seen,
+                                                               decode_seen)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.flash_attention_cuda, ops.decode_attention_cuda = self._saved
+
+
+def _event_ms(fn, reps: int = 3) -> float:
+    """Median device-clock time of ``fn()`` between CUDA events."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _decode_split(model, params, eng):
+    """One decode step of ``eng``'s live slots, split by CUDA events into
+    the MoE blocks, the attention kernel calls and the rest (projections,
+    norms, the cache write, the unembedding). Returns ms
+    (total, moe, attention)."""
+    import torch
+
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+
+    toks = torch.tensor([[s.generated[-1] if s else 0] for s in eng.slots],
+                        dtype=torch.int32, device="cuda")
+    pos = torch.as_tensor(eng.positions.astype("int32"), device="cuda")
+    spans = {"moe": [], "attention": []}
+    saved = (moe_mod.moe_forward, attn_mod.decode_attention_paged)
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return run
+
+    def step():
+        # the same token at the same position each time: rewrites one row
+        eng.cache["index"] = torch.as_tensor(
+            (eng.positions % eng.serving.max_seq).astype("int32"),
+            device="cuda")
+        model.decode_step(params, eng.cache, {"tokens": toks,
+                                              "positions": pos})
+
+    step()  # warm-up
+    moe_mod.moe_forward = timed("moe", saved[0])
+    attn_mod.decode_attention_paged = timed("attention", saved[1])
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        moe_mod.moe_forward, attn_mod.decode_attention_paged = saved
+    total = start.elapsed_time(end)
+    part = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items()}
+    return total, part["moe"], part["attention"]
+
+
+def qwen3_moe_full_width(records):
+    """Phase 12 (a): qwen3-moe-235b-a22b at full width (d 4096, 64 query
+    heads on 4 KV heads of 128, 128 experts top-8 of moe_d_ff 1536, vocab
+    151936, qk_norm), depth cut to 8 of its 94 layers, bf16, random
+    weights from a seed, moe_impl "auto" (dense: every expert computes
+    every token). A 320-token prompt's prefill logits under attn_impl
+    "cuda" against "auto"; the same prefill under moe_impl "dropping"
+    beside "dense" (CUDA events); four requests (64-300-token prompts, 16
+    new tokens) on a paged TierEngine (64-row pages) under "cuda", failing
+    unless the flash kernel and the paged decode kernel launched at (hd 128,
+    group 16), each request had its own prefill group, every token is in
+    the vocabulary and the drained pool holds no page; then one decode
+    step's split between attention and the MoE blocks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import ServingConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.counting import count_params
+    from repro_torch.serving.engine import TierEngine
+
+    full = get_config("qwen3-moe-235b-a22b")
+    depth = 8
+    cfg = full.replace(dtype="bfloat16", num_layers=depth)
+    t0 = time.perf_counter()
+    model = build_model(cfg, attn_impl="cuda", device="cuda")
+    params = model.init(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"  qwen3-moe-235b-a22b cut to {depth} of its {full.num_layers} "
+          f"layers at full width: {n_params / 1e9:.3f} B parameters "
+          f"({n_params * 2 / 1e9:.1f} GB bf16; all {full.num_layers} layers: "
+          f"{count_params(full) / 1e9:.1f} B), drawn on the card in "
+          f"{time.perf_counter() - t0:.1f}s")
+    auto = build_model(cfg, attn_impl="auto", device="cuda")
+    dropping = build_model(cfg, attn_impl="cuda", moe_impl="dropping",
+                           device="cuda")
+    rng = np.random.default_rng(12)
+    prompt = rng.integers(4, cfg.vocab_size, 320).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(prompt[None], device="cuda")}
+    out = {}
+    for name, m in (("auto", auto), ("cuda", model), ("dropping", dropping)):
+        m.prefill(params, batch, 512)  # warm-up
+        out[name] = m.prefill(params, batch, 512)[0].float()
+    if not all(bool(torch.isfinite(x).all()) for x in out.values()):
+        fail("qwen3-moe prefill logits are not finite")
+    diff = float((out["auto"] - out["cuda"]).abs().max())
+    agree = bool(out["auto"].argmax(-1) == out["cuda"].argmax(-1))
+    ms = {"dense": [], "dropping": []}
+    for name in ("dense", "dropping", "dropping", "dense"):  # in turns
+        m = model if name == "dense" else dropping
+        ms[name].append(_event_ms(lambda: m.prefill(params, batch, 512)))
+    ddiff = float((out["dropping"] - out["cuda"]).abs().max())
+    print(f"  qwen3-moe prefill S=320: max |logit auto - cuda| {diff:.4g} "
+          f"(of max |logit| {float(out['auto'].abs().max()):.4g}), argmax "
+          f"{'agrees' if agree else 'DIFFERS'} | moe_impl, CUDA events, "
+          f"in turns (median of 3 each): dense "
+          f"{', '.join(f'{x:.2f}' for x in ms['dense'])} ms, dropping "
+          f"{', '.join(f'{x:.2f}' for x in ms['dropping'])} ms; max |logit "
+          f"dropping - dense| {ddiff:.4g} (capacity "
+          f"{max(1, int(320 * cfg.top_k / cfg.num_experts * cfg.capacity_factor))}"
+          f" rows an expert: tokens drop)")
+    del auto, dropping
+    sv = ServingConfig(max_batch=4, max_seq=512, paged=True, kv_page_size=64,
+                       fused_steps=8)
+    eng = TierEngine(model, params, sv)
+    groups = []
+    admit = eng._admit_group
+    eng._admit_group = lambda jobs, slots, bucket: (
+        groups.append(len(jobs)), admit(jobs, slots, bucket))
+    prompts = [(rng.integers(4, cfg.vocab_size, n).astype(np.int32), 16)
+               for n in (64, 130, 217, 300)]
+    torch.cuda.reset_peak_memory_stats()
+    done, counts, by_shape, wall = _serve_direct(eng, prompts,
+                                                 "qwen3-moe serve")
+    key = (cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads)
+    for name in ("flash_attention", "decode_attention_paged"):
+        if by_shape[name].get(key, 0) <= 0:
+            fail(f"qwen3-moe serve never launched {name} at (hd, group) "
+                 f"{key}: {by_shape[name]}")
+        records[name]["launches"] = (records[name].get("launches", 0)
+                                     + counts[name])
+    if groups != [1] * len(prompts):
+        fail(f"qwen3-moe serve: prefill groups {groups}, not one a request")
+    gauges = eng.pool.gauges()
+    if gauges["pages_free"] != sv.pool_pages:
+        fail(f"qwen3-moe serve: the drained pool holds pages: {gauges}")
+    print(f"  qwen3-moe serve (paged, 64-row pages, attn cuda, moe dense): 4 "
+          f"requests in {wall:.3f}s, {eng.decode_tokens} decode / "
+          f"{eng.prefill_tokens} prompt tokens, prefill groups {groups}, "
+          f"launches {counts} by (hd, group) {by_shape} | peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    for rid in sorted(done):
+        print(f"    rid={rid} prompt={len(prompts[rid][0])} "
+              f"tokens={done[rid][:6]}...")
+    eng = TierEngine(model, params, sv)
+    for rid, (toks, _) in enumerate(prompts):
+        eng.submit(rid, toks, max_new=64)
+    eng._admit()
+    total, moe_ms, attn_ms = _decode_split(model, params, eng)
+    print(f"  qwen3-moe decode step B=4 ({depth} layers, CUDA events): "
+          f"{total:.2f} ms, of it the MoE blocks {moe_ms:.2f} ms "
+          f"({moe_ms / total:.0%}; dense: all {cfg.num_experts} experts read "
+          f"{3 * cfg.num_experts * cfg.d_model * cfg.moe_d_ff * 2 / 1e9:.2f} "
+          f"GB a layer) and the paged attention kernel {attn_ms:.2f} ms "
+          f"({attn_ms / total:.0%}), the rest {total - moe_ms - attn_ms:.2f} ms")
+    del eng, model, params
+    torch.cuda.empty_cache()
+
+
+def whisper_full_width(records):
+    """Phase 12 (b): whisper-small at full width and depth (12 encoder and
+    12 decoder layers, d 768, 12 heads of 64, 1500 frames of 80 mel bins,
+    vocab 51865), bf16, random weights. The encoder output and the prefill
+    logits under attn_impl "cuda" against "auto"; then four requests on a
+    dense TierEngine and four on a paged one under "cuda" (random (1500,
+    80) frames in ``extras``, 4-16-token prompts, 32 new tokens, a 448-row
+    self cache). Fails unless the flash kernel launched at (hd 64, group 1)
+    non-causal with S=1500 and the dense decode kernel at T=1500 (the
+    cross read, query at 10**9) and at the self cache's T."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import ServingConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import TierEngine
+
+    cfg = get_config("whisper-small").replace(dtype="bfloat16")
+    model = build_model(cfg, attn_impl="cuda", device="cuda")
+    params = model.init(0)
+    auto = build_model(cfg, attn_impl="auto", device="cuda")
+    n_params = sum(p.numel() for p in _leaves(params))
+    rng = np.random.default_rng(13)
+
+    def frames():
+        return rng.standard_normal((cfg.encoder_seq, cfg.frontend_dim)
+                                   ).astype(np.float32)
+
+    batch = {"tokens": torch.as_tensor(rng.integers(
+                 4, cfg.vocab_size, (2, 12)), dtype=torch.int32,
+                 device="cuda"),
+             "frames": torch.as_tensor(np.stack([frames(), frames()]),
+                                       device="cuda")}
+    enc = {n: m.encode(params, batch["frames"]).float()
+           for n, m in (("auto", auto), ("cuda", model))}
+    logits = {n: m.prefill(params, batch, 448)[0].float()
+              for n, m in (("auto", auto), ("cuda", model))}
+    for x in list(enc.values()) + list(logits.values()):
+        if not bool(torch.isfinite(x).all()):
+            fail("whisper encoder output or prefill logits are not finite")
+    ediff = float((enc["auto"] - enc["cuda"]).abs().max())
+    ldiff = float((logits["auto"] - logits["cuda"]).abs().max())
+    agree = int((logits["auto"].argmax(-1) == logits["cuda"].argmax(-1))
+                .sum())
+    print(f"  whisper-small ({n_params / 1e9:.3f} B parameters, bf16): "
+          f"encoder S={cfg.encoder_seq} max |auto - cuda| {ediff:.4g} (of max "
+          f"{float(enc['auto'].abs().max()):.4g}); prefill max |logit auto - "
+          f"cuda| {ldiff:.4g} (of max "
+          f"{float(logits['auto'].abs().max()):.4g}), argmax agrees on "
+          f"{agree}/2 rows")
+    del auto
+    prompts = [(rng.integers(4, cfg.vocab_size, n).astype(np.int32), 32,
+                {"frames": frames()}) for n in (4, 7, 12, 16)]
+    hd, group = cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads
+    want_flash = (hd, group, False, cfg.encoder_seq)
+    for paged in (False, True):
+        sv = ServingConfig(max_batch=4, max_seq=448, paged=paged,
+                           fused_steps=8,
+                           **({"kv_page_size": 64} if paged else {}))
+        eng = TierEngine(model, params, sv)
+        label = f"whisper serve ({'paged' if paged else 'dense'})"
+        with _KernelShapes() as seen:
+            done, counts, by_shape, wall = _serve_direct(eng, prompts, label)
+        want_decode = [(hd, group, cfg.encoder_seq, True),
+                       (hd, group, sv.max_seq, False)]
+        if seen.flash.get(want_flash, 0) <= 0:
+            fail(f"{label}: no flash launch at (hd, group, causal, S) "
+                 f"{want_flash}: {seen.flash}")
+        for key in want_decode:
+            if seen.decode.get(key, 0) <= 0:
+                fail(f"{label}: no dense decode launch at (hd, group, T, "
+                     f"query at 10**9) {key}: {seen.decode}")
+        for name in ("flash_attention", "decode_attention"):
+            records[name]["launches"] = (records[name].get("launches", 0)
+                                         + counts[name])
+        if paged and eng.pool.gauges()["pages_free"] != sv.pool_pages:
+            fail(f"{label}: the drained pool holds pages")
+        print(f"  {label}: 4 requests in {wall:.3f}s, {eng.decode_tokens} "
+              f"decode / {eng.prefill_tokens} prompt tokens | flash by (hd, "
+              f"group, causal, S) {seen.flash} | dense decode by (hd, group,"
+              f" T, query at 10**9) {seen.decode} | launches {counts}")
+        for rid in sorted(done):
+            print(f"    rid={rid} prompt={len(prompts[rid][0])} "
+                  f"tokens={done[rid][:6]}...")
+    del eng, model, params
+    torch.cuda.empty_cache()
+
+
+def moe_encdec_reduced_parity():
+    """Phase 12 (c): reduced f32 qwen3-moe, kimi-k2 (one dense layer, one
+    shared expert) and whisper-small engines on the card with the kernels
+    ("cuda") decode the tokens of the same weights on the CPU with the
+    plain versions ("torch"), fused and per token, paged and dense, at
+    temperature 0. For the MoE pair, a resumed session and a slot migrated
+    paged <-> dense on the card equal cold serving."""
+    import numpy as np
+
+    from repro_torch.config import ServingConfig
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import SlotPayload, TierEngine
+
+    for arch in ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "whisper-small"):
+        cfg = reduced_config(arch).replace(dtype="float32")
+        cpu = build_model(cfg, attn_impl="torch", device="cpu")
+        gpu = build_model(cfg, attn_impl="cuda", device="cuda")
+        p_cpu = cpu.init(0)
+        p_gpu = _tree_to(p_cpu, "cuda")
+        rng = np.random.default_rng(14)
+        extras = []
+        for n in (9, 21, 40, 50, 90):
+            extras.append({"frames": rng.standard_normal(
+                (cfg.encoder_seq, cfg.frontend_dim)).astype(np.float32)}
+                if cfg.family == "encdec" else {})
+        prompts = [rng.integers(4, cfg.vocab_size, n).astype(np.int32)
+                   for n in (9, 21, 40, 50, 90)]
+
+        def engine(device, paged, fused, **kw):
+            model, params = (gpu, p_gpu) if device == "cuda" else (cpu, p_cpu)
+            return TierEngine(model, params, ServingConfig(
+                max_batch=4, max_seq=128, paged=paged, kv_page_size=16,
+                fused_steps=fused, decode_impl=device if device == "cuda"
+                else "torch", **kw), eos_id=-1)
+
+        def run(eng, jobs, max_new=12):
+            for rid, (p, ex) in jobs:
+                eng.submit(rid, p, max_new=max_new, extras=dict(ex))
+            return {s.rid: s.generated for s in eng.run_until_drained()}
+
+        jobs = list(enumerate(zip(prompts, extras)))
+        n_tok = 0
+        for paged in (False, True):
+            for fused in (1, 8):
+                toks = {d: run(engine(d, paged, fused), jobs)
+                        for d in ("cuda", "cpu")}
+                if toks["cuda"] != toks["cpu"]:
+                    fail(f"reduced {arch} paged={paged} fused={fused}: card "
+                         f"{toks['cuda']} != CPU {toks['cpu']}")
+                n_tok += sum(len(t) for t in toks["cuda"].values())
+        msg = ""
+        if cfg.family == "moe":
+            for paged in (False, True):
+                eng = engine("cuda", paged, 8, session_cache_mb=64.0)
+                eng.submit(0, prompts[2], max_new=6, session="s")
+                gen = {s.rid: s.generated for s in eng.run_until_drained()}[0]
+                hist = np.concatenate([prompts[2], np.asarray(gen, np.int32),
+                                       prompts[0]])
+                cold = run(engine("cuda", paged, 8), [(1, (hist, {}))], 6)[1]
+                eng.submit(1, hist, max_new=6, session="s")
+                got = {s.rid: s.generated
+                       for s in eng.run_until_drained()}[1]
+                if got != cold or eng.resumed_sessions != 1:
+                    fail(f"reduced {arch} paged={paged}: resumed session "
+                         f"{got} != cold {cold} (resumed "
+                         f"{eng.resumed_sessions})")
+                ref = run(engine("cuda", paged, 8), jobs[:2], 20)
+                donor = engine("cuda", paged, 8)
+                for rid, (p, _) in jobs[:2]:
+                    donor.submit(rid, p, max_new=20)
+                donor.step()
+                payload = SlotPayload.from_bytes(
+                    donor.extract_slot(1).to_bytes())
+                target = engine("cuda", not paged, 8)
+                target.inject_slot(payload)
+                got = {s.rid: s.generated
+                       for s in target.run_until_drained()}[1]
+                if got != ref[1] or target.prefill_tokens:
+                    fail(f"reduced {arch}: slot migrated paged={paged} -> "
+                         f"{not paged}: {got} != unmigrated {ref[1]}")
+            msg = ("; a resumed session and a slot migrated paged <-> dense "
+                   "equal cold serving")
+        print(f"  reduced f32 {arch}: card (kernels) == CPU (plain) on "
+              f"{n_tok} tokens, fused and per-token, paged and dense{msg}")
+
+
+def phase_moe_encdec(records):
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    # a paged engine sits in a reference cycle (its prefix store's eviction
+    # hook is a bound method): earlier phases' engines, and the weights they
+    # hold, are freed only by the cycle collector
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qwen3_moe_full_width(records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    whisper_full_width(records)
+    moe_encdec_reduced_parity()
+    print(f"  phase 12 wall {time.perf_counter() - t0:.1f}s")
+
+
 def phase_launcher():
     """The launcher's default run, then its warm-serving and migration
     flags (phase 8 (d)), which must print the ``sessions:`` line, then
@@ -2364,7 +2835,7 @@ def phase_launcher():
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2416,8 +2887,8 @@ def main() -> None:
               "cuda")
         phase_spec(records, built)
     del built
-    if phases & {10, 11} and 3 not in phases:
-        fail("phases 10 and 11 record launches into phase 3's kernel "
+    if phases & {10, 11, 12} and 3 not in phases:
+        fail("phases 10, 11 and 12 record launches into phase 3's kernel "
              "records")
     if 10 in phases:
         print("phase 10: the recurrent families (full-width recurrentgemma-9b"
@@ -2426,6 +2897,11 @@ def main() -> None:
     if 11 in phases:
         print("phase 11: full-width phi-3-vision-4.2b serve (hd 96)")
         phase_zoo_serve(records)
+    if 12 in phases:
+        print("phase 12: the MoE and encoder-decoder families (qwen3-moe at "
+              "full width, 8 layers; whisper-small at full width and depth; "
+              "reduced parity)")
+        phase_moe_encdec(records)
     if 7 in phases:
         print("phase 7: launcher")
         phase_launcher()

@@ -10,15 +10,22 @@ from repro_torch.config import ModelConfig
 
 def build_model(cfg: ModelConfig, attn_impl: str = "auto",
                 param_dtype: str = "", decode_impl: str = "auto",
-                device: Union[str, torch.device] = "cuda"):
+                device: Union[str, torch.device] = "cuda",
+                moe_impl: str = "auto"):
     """Construct the family-appropriate model on ``device`` (default
-    ``cuda``; raises when no card is present)."""
+    ``cuda``; raises when no card is present): ``EncDecLM`` for ``encdec``,
+    ``DecoderLM`` for every other family of the zoo."""
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import EncDecLM
+
+        return EncDecLM(cfg, attn_impl=attn_impl, param_dtype=param_dtype,
+                        decode_impl=decode_impl, device=device)
     from repro_torch.models.transformer import FAMILIES, DecoderLM
 
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1, "
-            f"item 11 (remaining families: moe next, then encdec)")
-
+            f"family {cfg.family!r} is not a family of the model zoo "
+            f"(encdec, {', '.join(FAMILIES)})")
     return DecoderLM(cfg, attn_impl=attn_impl, param_dtype=param_dtype,
-                     decode_impl=decode_impl, device=device)
+                     decode_impl=decode_impl, device=device,
+                     moe_impl=moe_impl)

@@ -23,6 +23,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * (1.0 + weight.float())).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm with weight and bias (Whisper), computed in float32."""
+    dtype = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dtype)
+
+
 def activation_fn(name: str, x: torch.Tensor,
                   gate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gated and ungated MLP activations. ``gate`` is the linear branch."""

@@ -1,5 +1,5 @@
-"""Decoder-only LM for the ``dense``, ``vlm``, ``ssm`` and ``hybrid``
-families. Counterpart of ``repro/models/transformer.py::DecoderLM``.
+"""Decoder-only LM for the ``dense``, ``vlm``, ``moe``, ``ssm`` and
+``hybrid`` families. Counterpart of ``repro/models/transformer.py::DecoderLM``.
 
 Parameters travel as a nested dict with the JAX tree's names and
 layer-stacked shapes (``blocks/wq`` is ``(L, d, H*hd)``), so one model
@@ -7,7 +7,10 @@ object serves several engines and a JAX parameter tree converts by copy
 (``repro_torch.convert``). The cache tree keeps the JAX leaf names and row
 shapes: ``blocks/{k,v}`` ``(L, B, T, K, hd)``, ``pos`` ``(B, T)``,
 ``index`` ``(B,)``, plus ``pages`` ``(B, n_pt)`` when the engine pages the
-KV leaves into ``(L, P, page, K, hd)`` pools. The ``ssm`` cache is
+KV leaves into ``(L, P, page, K, hd)`` pools. The ``moe`` family's layers
+fall in two groups, ``dense_blocks`` (its first ``first_k_dense`` layers,
+a dense MLP) and ``blocks`` (an MoE layer each), with a KV leaf pair each
+over the shared ``pos``/``index``. The ``ssm`` cache is
 ``blocks/{conv,h}`` (Mamba-2 conv window and f32 state per layer, no
 ``pos``); the ``hybrid`` cache holds ``repeats/rglru/{conv,h}`` ``(R, n_rec,
 B, ...)`` (batch at axis 2), ``repeats/attn/{k,v}`` ``(R, B, w, K, hd)``, a
@@ -31,6 +34,7 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_rope, embed, pad_vocab,
@@ -43,8 +47,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 #: prefill attention impls (``attention.attention``); ``cuda``/``torch`` are
 #: the counterpart of the JAX package's ``pallas``
 ATTN_IMPLS = ("auto", "dense", "flash", "local", "cuda", "torch")
-#: the families the port serves
-FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+#: the families ``DecoderLM`` serves (``encdec`` is ``EncDecLM``)
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+#: the families whose cache is full-capacity KV under absolute positions
+KV_FAMILIES = ("dense", "vlm", "moe")
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -58,7 +64,8 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
-def attn_specs(cfg: ModelConfig, prefix_axes=(), include_mlp=True) -> dict:
+def attn_specs(cfg: ModelConfig, prefix_axes=(), include_mlp=True,
+               moe=False) -> dict:
     ps = tuple(n for n, _ in prefix_axes)
     pa = tuple(a for _, a in prefix_axes)
     d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -73,7 +80,9 @@ def attn_specs(cfg: ModelConfig, prefix_axes=(), include_mlp=True) -> dict:
     if cfg.qk_norm:
         s["q_norm"] = ParamSpec(ps + (hd,), pa + (None,), "zeros")
         s["k_norm"] = ParamSpec(ps + (hd,), pa + (None,), "zeros")
-    if include_mlp:
+    if moe:
+        s["moe"] = moe_mod.moe_specs(cfg, prefix_axes)
+    elif include_mlp:
         s["mlp"] = mlp_specs(d, cfg.d_ff, cfg.activation, prefix_axes)
     return s
 
@@ -108,17 +117,21 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, attn_impl: str = "auto",
                  param_dtype: str = "", decode_impl: str = "auto",
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 moe_impl: str = "auto"):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r}: only {', '.join(FAMILIES)} are "
-                f"ported (ROADMAP queue 1, item 11: moe next, then encdec)")
+            raise ValueError(f"DecoderLM serves {', '.join(FAMILIES)}, not "
+                             f"{cfg.family!r}")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS} "
                              f"(the JAX 'pallas' is 'cuda' here)")
+        if moe_impl not in moe_mod.MOE_IMPLS:
+            raise ValueError(f"moe_impl {moe_impl!r} not in "
+                             f"{moe_mod.MOE_IMPLS}")
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.moe_impl = moe_impl
         self.decode_impl = decode_impl
         self.v_pad = pad_vocab(cfg.vocab_size)
         self.dtype = DTYPES[param_dtype or cfg.dtype]
@@ -145,8 +158,9 @@ class DecoderLM(nn.Module):
             s["unembed"] = ParamSpec((self.v_pad, d), ("vocab", "embed"),
                                      "scaled")
         L = cfg.num_layers
-        if cfg.family in ("dense", "vlm"):
-            s["blocks"] = attn_specs(cfg, ((L, "layers"),))
+        if cfg.family in KV_FAMILIES:
+            for key, n, moe in self._kv_groups():
+                s[key] = attn_specs(cfg, ((n, "layers"),), moe=moe)
         elif cfg.family == "ssm":
             s["blocks"] = ssm_mod.ssd_specs(cfg, ((L, "layers"),))
         else:  # hybrid
@@ -169,6 +183,16 @@ class DecoderLM(nn.Module):
     def _n_rec(self) -> int:
         return sum(1 for bk in self.cfg.block_pattern if bk == "rglru")
 
+    def _kv_groups(self) -> Tuple[Tuple[str, int, bool], ...]:
+        """(cache/param key, layers, moe) of each layer group of the KV
+        families, in stack order."""
+        cfg = self.cfg
+        if cfg.family != "moe":
+            return (("blocks", cfg.num_layers, False),)
+        first = (("dense_blocks", cfg.first_k_dense, False),) \
+            if cfg.first_k_dense else ()
+        return first + (("blocks", cfg.num_layers - cfg.first_k_dense, True),)
+
     def init(self, seed: Union[int, torch.Generator] = 0) -> dict:
         """Random parameters from ``seed`` on this model's device."""
         return init_tree(self.specs(), seed, self.dtype, self.device)
@@ -183,9 +207,9 @@ class DecoderLM(nn.Module):
         a stored prefix along "seq"."""
         kv = ("layers", "batch", "seq", "kv_heads", None)
         fam = self.cfg.family
-        if fam in ("dense", "vlm"):
-            return {"blocks": {"k": kv, "v": kv}, "pos": ("batch", "seq"),
-                    "index": ("batch",)}
+        if fam in KV_FAMILIES:
+            out = {key: {"k": kv, "v": kv} for key, _, _ in self._kv_groups()}
+            return {**out, "pos": ("batch", "seq"), "index": ("batch",)}
         if fam == "ssm":
             return {"blocks": {"conv": ("layers", "batch", None, "heads"),
                                "h": ("layers", "batch", "heads", None,
@@ -212,9 +236,11 @@ class DecoderLM(nn.Module):
                         "index": torch.zeros((batch,), dtype=torch.int32,
                                              device=dev)}
         hd, k = cfg.resolved_head_dim, cfg.num_kv_heads
-        if cfg.family in ("dense", "vlm"):
-            shape = (cfg.num_layers, batch, capacity, k, hd)
-            return {"blocks": {"k": z(shape), "v": z(shape)}, **bk(capacity)}
+        if cfg.family in KV_FAMILIES:
+            out = {key: {"k": z((n, batch, capacity, k, hd)),
+                         "v": z((n, batch, capacity, k, hd))}
+                   for key, n, _ in self._kv_groups()}
+            return {**out, **bk(capacity)}
         if cfg.family == "ssm":
             cs = ssm_mod.ssd_cache_shape(cfg, batch)
             return {"blocks": {
@@ -240,7 +266,10 @@ class DecoderLM(nn.Module):
     def _attn_block(self, lp, x, cos, sin, pos_q, pos_kv, mode, window,
                     lcache, idx, layer: Optional[int] = None,
                     ctx: Optional[int] = None,
-                    pages: Optional[torch.Tensor] = None):
+                    pages: Optional[torch.Tensor] = None, moe: bool = False):
+        """One attention block and its MLP (an MoE layer under ``moe``).
+        Returns (x, the prefill's (k, v) or None, the router's aux loss or
+        None)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h_, k_, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -346,8 +375,12 @@ class DecoderLM(nn.Module):
         out = out.reshape(b, s, h_ * hd)
         x = x + torch.matmul(out, lp["wo"]).to(x.dtype)
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp_forward(lp["mlp"], h2, cfg.activation).to(x.dtype)
-        return x, new_kv
+        aux = None
+        if moe:
+            y, aux = moe_mod.moe_forward(lp["moe"], h2, cfg, self.moe_impl)
+        else:
+            y = mlp_forward(lp["mlp"], h2, cfg.activation)
+        return x + y.to(x.dtype), new_kv, aux
 
     # ------------------------------------------------------------------
     # the stack
@@ -382,28 +415,38 @@ class DecoderLM(nn.Module):
 
     def _stack(self, params, x, positions, mode, cache, ctx=None,
                idx=None):
+        """Returns (x, the MoE layers' summed aux loss, the prefill's layer
+        caches)."""
         cfg = self.cfg
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "ssm":
-            return self._ssm_stack(params, x, mode, cache)
+            x, caches = self._ssm_stack(params, x, mode, cache)
+            return x, aux_total, caches
         cos, sin = self._rope(positions)
         if cfg.family == "hybrid":
-            return self._hybrid_stack(params, x, positions, cos, sin, mode,
-                                      cache, idx)
+            x, caches = self._hybrid_stack(params, x, positions, cos, sin,
+                                           mode, cache, idx)
+            return x, aux_total, caches
         pos_kv = cache["pos"] if cache is not None else None
         pages = cache.get("pages") if cache is not None else None
-        lcache = cache["blocks"] if cache is not None else None
-        ks, vs = [], []
-        for l in range(cfg.num_layers):
-            lp = _layer(params["blocks"], l)
-            x, kv = self._attn_block(lp, x, cos, sin, positions, pos_kv, mode,
-                                     None, lcache, idx, layer=l, ctx=ctx,
-                                     pages=pages)
-            if kv is not None:
-                ks.append(kv[0])
-                vs.append(kv[1])
-        layer_caches = ({"blocks": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-                        if ks else {})
-        return x, layer_caches
+        layer_caches = {}
+        for key, n_layers, moe in self._kv_groups():
+            lcache = cache[key] if cache is not None else None
+            ks, vs = [], []
+            for l in range(n_layers):
+                lp = _layer(params[key], l)
+                x, kv, aux = self._attn_block(
+                    lp, x, cos, sin, positions, pos_kv, mode, None, lcache,
+                    idx, layer=l, ctx=ctx, pages=pages, moe=moe)
+                if aux is not None:
+                    aux_total = aux_total + aux
+                if kv is not None:
+                    ks.append(kv[0])
+                    vs.append(kv[1])
+            if ks:
+                layer_caches[key] = {"k": torch.stack(ks),
+                                     "v": torch.stack(vs)}
+        return x, aux_total, layer_caches
 
     def _ssm_stack(self, params, x, mode, cache):
         """Mamba-2 layers. Prefill returns the stacked conv windows and
@@ -453,7 +496,7 @@ class DecoderLM(nn.Module):
                 x, nc = self._rglru_unit(_layer(lp["rglru"], i), x, mode,
                                          subc)
                 units.append(nc)
-            x, kv = self._attn_block(
+            x, kv, _ = self._attn_block(
                 lp["attn"], x, cos, sin, positions, pos_kv, mode, win,
                 None if rep_c is None else rep_c["attn"], idx, layer=r)
             if kv is not None:
@@ -497,7 +540,8 @@ class DecoderLM(nn.Module):
 
     def forward(self, params, batch, mode="prefill", cache=None, ctx=None,
                 idx=None):
-        """Backbone -> final hidden states (B, S_total, D)."""
+        """Backbone -> (final hidden states (B, S_total, D), the MoE aux
+        loss, the prefill's layer caches, the vision prefix length)."""
         x, prefix = self._embed_inputs(params, batch, mode)
         b, s, _ = x.shape
         if mode == "decode":
@@ -507,10 +551,10 @@ class DecoderLM(nn.Module):
         else:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=x.device)[None].expand(b, s)
-        x, layer_caches = self._stack(params, x, positions, mode, cache, ctx,
-                                      idx)
+        x, aux, layer_caches = self._stack(params, x, positions, mode, cache,
+                                           ctx, idx)
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
-        return x, layer_caches, prefix
+        return x, aux, layer_caches, prefix
 
     def unembed_table_f32(self, params) -> torch.Tensor:
         """The unembedding table sliced to the true vocab, in float32. A
@@ -535,7 +579,8 @@ class DecoderLM(nn.Module):
         true last token. Pad rows sit after all real tokens, so causal
         attention leaves real-token activations untouched; their stale
         cache entries are masked by the caller via ``pos``."""
-        hidden, layer_caches, prefix = self.forward(params, batch, "prefill")
+        hidden, _, layer_caches, prefix = self.forward(params, batch,
+                                                       "prefill")
         b, s, _ = hidden.shape
         if "lengths" in batch:
             last = prefix + batch["lengths"].long() - 1
@@ -579,8 +624,8 @@ class DecoderLM(nn.Module):
             cache["index"] = torch.full((b,), s % w, dtype=torch.int32,
                                         device=dev)
         else:
-            cache["blocks"] = {n: fit(v, 2)
-                               for n, v in layer_caches["blocks"].items()}
+            for key, kv in layer_caches.items():  # (dense_blocks,) blocks
+                cache[key] = {n: fit(v, 2) for n, v in kv.items()}
             cache["index"] = torch.full((b,), min(s, w) % max(w, 1),
                                         dtype=torch.int32, device=dev)
         return cache
@@ -600,7 +645,8 @@ class DecoderLM(nn.Module):
             cache["pos"][bi, idx.long()] = batch["positions"].to(torch.int32)
             cap = cache["pos"].shape[1]
             cache["index"] = (idx + 1) % cap
-        hidden, _, _ = self.forward(params, batch, "decode", cache, ctx, idx)
+        hidden, _, _, _ = self.forward(params, batch, "decode", cache, ctx,
+                                       idx)
         return self._logits(params, hidden)[:, 0], cache
 
     def decode_chunk(self, params, cache, batch, ctx=None,
@@ -619,7 +665,7 @@ class DecoderLM(nn.Module):
         them to -1, as after a bucketed prefill. Dense (not paged) caches
         only."""
         cfg = self.cfg
-        assert cfg.family in ("dense", "vlm", "moe"), (
+        assert cfg.family in KV_FAMILIES, (
             "decode_chunk needs positionally addressable KV; "
             f"{cfg.family} carries point-in-time recurrent state")
         if "pages" in cache:
@@ -633,7 +679,8 @@ class DecoderLM(nn.Module):
         cache["pos"][bi, widx] = batch["positions"].to(torch.int32)
         cap = cache["pos"].shape[1]
         cache["index"] = ((idx + s) % cap).to(torch.int32)
-        hidden, _, _ = self.forward(params, batch, "chunk", cache, ctx, idx)
+        hidden, _, _, _ = self.forward(params, batch, "chunk", cache, ctx,
+                                       idx)
         if all_logits:
             return self._logits(params, hidden), cache
         if "lengths" in batch:

@@ -1,6 +1,5 @@
 """Live continuous-batching serving engine (runs real models). Counterpart
-of ``repro/serving/engine.py::TierEngine`` for the ``dense``, ``vlm``,
-``ssm`` and ``hybrid`` families.
+of ``repro/serving/engine.py::TierEngine`` for every family of the zoo.
 
 One engine per tier. Fixed-slot design: ``max_batch`` decode slots share a
 KV cache (per-slot write indices); finished slots are freed and refilled
@@ -23,7 +22,12 @@ table per slot (``ServingConfig(paged=True)``, the launcher default).
   engine (charged a flat number of pages a slot), freeze a dead slot's
   whole row inside the fused block, park and store only whole processed
   sequences, and replay a warm suffix or a speculative commit with
-  ``decode_chunk_recurrent``.
+  ``decode_chunk_recurrent``. ``moe`` prefills one request a group (a
+  capacity-dropping MoE routes over the flattened batch, so batching would
+  couple which tokens drop across requests). ``encdec`` pads buckets like
+  ``dense`` (frames travel in ``extras``), keeps its self and cross caches
+  dense on a paged engine under the flat page charge, steps a warm suffix
+  token by token, and has no speculative decoding (no chunked decode).
 * **Warm admission**: a prompt extending a parked session
   (``submit(session=...)``) or a stored prefix (``prefix_cache_mb > 0``)
   reuses the cached rows and prefills only its suffix, in one
@@ -76,7 +80,10 @@ from repro_torch.serving.prefix import (ParkedSession, PrefixStore,
 # Families whose decode cache is a full-capacity absolute-position buffer:
 # right-padded bucket prefill is exact for them (pad entries are masked via
 # the ``pos`` leaf). ssm/hybrid carry recurrent/ring state that pads would
-# shift: they batch exact same-length groups instead.
+# shift: they batch exact same-length groups instead. moe prefills per
+# request: a capacity-dropping MoE impl routes over the flattened batch, so
+# ANY cross-request batching (padded or not) would couple which tokens drop
+# across requests.
 _PADDED_FAMILIES = ("dense", "vlm", "encdec")
 
 
@@ -1294,8 +1301,17 @@ class TierEngine:
             return self.model.decode_chunk(
                 self.params, cache1, batch,
                 ctx=(teff if teff < cap else None), all_logits=True)
+        self._refuse_unchunked()
         return self.model.decode_chunk_recurrent(self.params, cache1, batch,
                                                  all_logits=True)
+
+    def _refuse_unchunked(self) -> None:
+        """Speculation feeds a block of tokens in one chunked pass: the
+        encdec family has none (neither has the JAX package's)."""
+        if not hasattr(self.model, "decode_chunk_recurrent"):
+            raise NotImplementedError(
+                f"speculative decoding: the {self.cfg.family} family has no "
+                f"chunked decode (decode_chunk / decode_chunk_recurrent)")
 
     def _spec_cache1(self, slot: int) -> Dict[str, Any]:
         """Batch-1 cache holding COPIES of ``slot``'s rows (gathered
@@ -1623,6 +1639,7 @@ class TierEngine:
                 self.params, cache1, batch,
                 ctx=(teff if teff < self.serving.max_seq else None))
         else:
+            self._refuse_unchunked()
             _, cache1 = self.model.decode_chunk_recurrent(self.params, cache1,
                                                           batch)
         self._insert_cache(cache1, slot)
@@ -1883,7 +1900,7 @@ class TierEngine:
         del self.waiting[:len(jobs)]
         pad_ok = self.cfg.family in _PADDED_FAMILIES
         groups: Dict[tuple, List[dict]] = {}
-        for job in jobs:
+        for j, job in enumerate(jobs):
             n = len(job["tokens"])
             prefix = self._prompt_prefix(job["extras"])
             if pad_ok:
@@ -1894,6 +1911,8 @@ class TierEngine:
             sig = (bucket, tuple(sorted(
                 (k, np.asarray(v).shape, str(np.asarray(v).dtype))
                 for k, v in job["extras"].items())))
+            if self.cfg.family == "moe":
+                sig += (j,)  # one group per request (see _PADDED_FAMILIES)
             groups.setdefault(sig, []).append(job)
         for sig, grp in groups.items():
             slots = [free.pop(0) for _ in grp]

@@ -434,3 +434,42 @@ def test_hybrid_slot_migrates_between_packages(family_model, direction):
     target.inject_slot(payload)
     assert _drained(target)[0] == want
     assert target.prefill_tokens == 0
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("route", ["jax-to-port", "port-to-jax",
+                                   "paged-to-dense", "dense-to-paged"])
+def test_moe_slot_migrates(family_model, route):
+    """A moe (reduced Qwen3-MoE) slot, prefilled beside a neighbour in its
+    own group, moves through the wire mid-decode, between the packages and
+    between the port's pool kinds, and finishes with the donor's
+    unmigrated tokens."""
+    cfg, jp = family_model("moe")
+    tm = build_model(reduced_config(cfg.name).replace(dtype="float32"),
+                     device="cpu")
+    tp = params_from_numpy(jax.device_get(jp), "cpu")
+    prompts = [(np.arange(n) % 300 + 4).astype(np.int32) for n in (9, 21)]
+
+    def make(kind):
+        sv = _sv("paged" if kind == "paged" else "dense", max_seq=96)
+        if kind == "jax":
+            return JTierEngine(j_build(cfg), jp, JServingConfig(**sv))
+        return TierEngine(tm, tp, ServingConfig(**sv))
+
+    def submit(eng):
+        for rid, p in enumerate(prompts):
+            eng.submit(rid, p, max_new=16)
+
+    src, dst = route.split("-to-")
+    ref = make(src)
+    submit(ref)
+    want = _drained(ref)[1]
+    donor = make(src)
+    submit(donor)
+    donor.step()
+    wire = donor.extract_slot(1).to_bytes()
+    payload = (JSlotPayload if dst == "jax" else SlotPayload).from_bytes(wire)
+    target = make(dst)
+    target.inject_slot(payload)
+    assert _drained(target)[1] == want
+    assert target.prefill_tokens == 0

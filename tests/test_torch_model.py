@@ -140,11 +140,14 @@ def test_out_of_vocab_ids_embed_as_nan_like_jnp_take(pair):
 
 
 def test_build_model_refuses_unported_family():
-    from repro_torch.configs import get_config
+    """Every family of the zoo is ported; a family outside it is refused."""
+    from repro_torch.configs import ALL_ARCHS, get_config
 
-    for arch in ("qwen3-moe-235b-a22b", "whisper-small"):  # moe, encdec
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(get_config(arch), device="cpu")
+    for arch in ALL_ARCHS:
+        assert build_model(get_config(arch), device="cpu").cfg.name == arch
+    with pytest.raises(NotImplementedError, match="not a family"):
+        build_model(get_config("qwen3-0.6b").replace(family="rwkv"),
+                    device="cpu")
 
 
 def test_build_model_validates_attn_impl(pair):

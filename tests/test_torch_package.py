@@ -24,7 +24,8 @@ def test_importing_the_port_loads_no_jax():
     # a subprocess: this test process already imported jax (conftest)
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
             "repro_torch.serving.tiers, repro_torch.kernels.ops, "
-            "repro_torch.serving.simulator\n"
+            "repro_torch.serving.simulator, repro_torch.models.moe, "
+            "repro_torch.models.encdec\n"
             "import numpy as np, torch\n"
             "from repro_torch.serving.engine import SeqState, SlotPayload\n"
             "k = torch.randn(2, 8, 2, 4).to(torch.bfloat16)\n"
@@ -125,6 +126,9 @@ def test_cuda_without_a_card_raises():
         build_model(reduced_config("qwen2-vl-2b"), device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(reduced_config("qwen2-vl-2b"))  # cuda is the default
+    for arch in ("qwen3-moe-235b-a22b", "whisper-small"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(reduced_config(arch))
     with pytest.raises((RuntimeError, AssertionError)):
         image_complexity(np.zeros((1, 8, 8), np.float32))  # kernel -> cuda
 

@@ -194,7 +194,8 @@ def _drive(transport, jobs, chaos):
     return done, events
 
 
-@pytest.mark.parametrize("family", ["dense", "vlm"])
+@pytest.mark.parametrize("family", [
+    "dense", "vlm", pytest.param("moe", marks=pytest.mark.slow)])
 def test_byzantine_event_stream_delivers_the_jax_tokens(family,
                                                        family_model):
     cfg, params = family_model(family)

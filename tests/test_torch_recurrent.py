@@ -372,8 +372,8 @@ def test_build_model_serves_the_recurrent_families():
         if cfg.family == "hybrid":
             assert tm._hybrid_counts() == (12, 2)
     for arch in ("qwen3-moe-235b-a22b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            build_model(get_config(arch), device="cpu")
+        assert build_model(get_config(arch), device="cpu").cfg.family in (
+            "moe", "encdec")
 
 
 @pytest.mark.parametrize("chunked", [True, False],

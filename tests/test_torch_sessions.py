@@ -29,7 +29,9 @@ from repro_torch.serving.engine import SlotPayload, TierEngine  # noqa: E402
 from repro_torch.serving.tiers import ClusterServer  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")
-FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm",
+            # as in the JAX suites, moe rides the slow mark
+            pytest.param("moe", marks=pytest.mark.slow), "ssm", "hybrid")
 
 
 @pytest.fixture(scope="module")

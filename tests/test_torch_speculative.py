@@ -27,7 +27,9 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import TierEngine  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")
-FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm",
+            # as in the JAX suites, moe rides the slow mark
+            pytest.param("moe", marks=pytest.mark.slow), "ssm", "hybrid")
 PAGED = dict(paged=True, kv_page_size=32, prefix_cache_mb=0,
              session_cache_mb=0)
 MAX_NEW = 12

@@ -109,6 +109,23 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      the CPU's tokens (plain versions), fused and per token, paged and
      dense; for the MoE pair a resumed session and a paged <-> dense
      migration equal cold serving;
+  13. training: (a) qwen2-vl-2b at full width and depth in float32 (1.546
+     B parameters, random weights, f32 AdamW state) through
+     ``make_train_step`` at the launcher's B=8, S=256: one vlm batch's
+     loss under remat "dots", "full" and "none" on the same weights (equal
+     to 1e-5, every gradient leaf finite and nonzero), then 3 steps under
+     "dots", one each under "full" and "none", 2 at accum=2 and one on a
+     vlm batch with 256 patches, printing each step's wall (CUDA events),
+     tokens/s, peak memory, loss, grad_norm, lr and model FLOPs as a share
+     of the f32 peak (TF32 off); fails unless every value is finite, every
+     leaf moved in step 1, peak memory falls none > dots > full, no hand
+     kernel launched, and attn_impl "cuda" refuses ``loss``; (b) the
+     training launcher on the card (reduced qwen2-vl-2b, 12 steps,
+     checkpoints at 6 and 12), then again from its step-6 checkpoint: the
+     step-12 checkpoints agree (1e-6); in process, the card's 12-step loss
+     history against the CPU's from the same weights (1e-4), a resume from
+     step 6 against the uninterrupted losses (1e-6), and the card's
+     checkpoint restored on the CPU with equal leaves;
   7. ``python -m repro_torch.launch.serve --requests 4 --max-new 4``, then
      with ``--sessions 2 --turns 2 --prefix-cache-mb 64 --migrate``, which
      must print its ``sessions:`` line (phase 8 (d)), with ``--speculate
@@ -117,10 +134,10 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      phase 9 (d)). Phase 7 runs last.
 
 The line before the last is the kernels' JSON record (launches: phases 4,
-5, 8, 9, 10, 11 and 12 together; each attention kernel's zoo shapes timed
-under "shapes", and every (dtype, hd, group) held in phase 3 with its worst
-error under "instantiations"); the last line is ``{"ok": true, "device":
-{...}}``.
+5, 8, 9, 10, 11 and 12 together, phase 13 launching none; each attention
+kernel's zoo shapes timed under "shapes", and every (dtype, hd, group)
+held in phase 3 with its worst error under "instantiations"); the last
+line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py                 # everything (one GPU)
     python3 chip_smoke.py --phases 1,2,3  # a subset, for debugging
@@ -128,6 +145,8 @@ error under "instantiations"); the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -2798,6 +2817,379 @@ def phase_moe_encdec(records):
     print(f"  phase 12 wall {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training
+# ---------------------------------------------------------------------------
+
+#: the launcher's defaults (``repro_torch.launch.train``)
+TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_TOTAL = 8, 256, 3e-4, 200
+REMAT_LOSS_RTOL = 1e-5  # one batch, one set of weights, three policies
+CARD_CPU_RTOL = 1e-4  # 12-step loss history, card (cuBLAS f32) vs CPU
+#: resumed against uninterrupted on one card: losses, and each parameter
+#: leaf's max |diff| over its max |entry| (f32 sums need not repeat
+#: bitwise between runs: the CPU's differ by ~1e-8 between two runs in one
+#: process)
+RESUME_RTOL = 1e-6
+
+
+def _train_flops(cfg, n_params: int, b: int, s: int) -> float:
+    """Model FLOPs of one train step: 6 x N x tokens, plus the attention
+    products (forward and backward) over all S x S pairs, as the plain
+    dense attention computes them: 12 x L x H x hd x S per token."""
+    return b * s * (6.0 * n_params + 12.0 * cfg.num_layers * cfg.num_heads
+                    * cfg.resolved_head_dim * s)
+
+
+def train_full_width():
+    """Phase 13 (a): qwen2-vl-2b at its published widths and depth (28
+    layers, d 1536, 12/2 heads of 128, vocab 151936; 1.546 B parameters), in
+    float32 as the trainer builds it, random weights from seed 0 drawn on
+    the card, f32 AdamW state, through ``make_train_step`` on the
+    launcher's B=8, S=256 batches from ``make_token_batch``: 3 steps under
+    remat "dots" (the default), one under "full", one under "none", 2 at
+    accum=2, then one on a vlm batch with 256 vision-stub patches (S = 256 +
+    256). Before them, one vlm batch's loss and gradients under each
+    policy on the same weights: the losses agree to 1e-5 relative and every
+    gradient leaf is finite and nonzero. Fails unless every loss and grad
+    norm is finite, every parameter leaf moved in the first step, the peak
+    memory falls none > dots > full, no hand kernel launched, and a model
+    built with attn_impl "cuda" refuses ``loss``."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.synthetic import make_token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.training import (adamw_update, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import global_norm, tree_leaves
+    from repro_torch.training.train_loop import loss_and_grads
+
+    before = ops.launches()
+    cfg = get_config("qwen2-vl-2b")
+    model = build_model(cfg.replace(dtype="float32"), param_dtype="float32",
+                        device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n = sum(p.numel() for p in leaves)
+    opt_cfg = OptimizerConfig(lr=TRAIN_LR, total_steps=TRAIN_TOTAL)
+    opt = init_opt_state(params, opt_cfg)
+    print(f"  qwen2-vl-2b f32: {n / 1e9:.3f} B parameters in {len(leaves)} "
+          f"leaves drawn in {time.perf_counter() - t0:.2f}s; params + AdamW "
+          f"m, v: {torch.cuda.memory_allocated() / 2**30:.2f} GiB; TF32 "
+          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}")
+
+    def batch(step, patches=False):
+        rng = np.random.default_rng(step)
+        out = {k: torch.as_tensor(v, device="cuda") for k, v in
+               make_token_batch(rng, TRAIN_B, TRAIN_S,
+                                cfg.vocab_size).items()}
+        if patches:
+            out["patches"] = torch.as_tensor(rng.standard_normal(
+                (TRAIN_B, cfg.num_patches, cfg.frontend_dim)).astype(
+                    np.float32), device="cuda")
+        return out
+
+    def set_policy(policy):
+        model.sharding = dataclasses.replace(model.sharding,
+                                             remat_policy=policy)
+
+    # one vlm batch (every leaf, proj_in too, takes a gradient), one set of
+    # weights, the three policies
+    losses = {}
+    b0 = batch(0, patches=True)
+    for policy in ("dots", "full", "none"):
+        set_policy(policy)
+        loss, _, grads = loss_and_grads(model, params, b0)
+        gl = tree_leaves(grads)
+        norms = torch.stack([g.float().norm() for g in gl])
+        if not bool(torch.isfinite(norms).all()) or not bool(
+                (norms > 0).all()):
+            bad = [i for i, x in enumerate(norms.tolist())
+                   if not np.isfinite(x) or x == 0]
+            fail(f"phase 13: remat {policy}: gradient leaves {bad} are zero "
+                 f"or not finite")
+        losses[policy] = (float(loss), float(global_norm(grads)))
+        del grads, gl
+    print("  one vlm batch, three remat policies: " + ", ".join(
+        f"{p} loss {l:.7f} grad_norm {g:.6f}" for p, (l, g) in
+        losses.items()))
+    ref = losses["dots"][0]
+    for policy, (l, _) in losses.items():
+        if not np.isfinite(l) or abs(l - ref) > REMAT_LOSS_RTOL * abs(ref):
+            fail(f"phase 13: remat {policy} loss {l} against dots {ref}")
+
+    plan = ([("dots", 1, False)] * 3 + [("full", 1, False), ("none", 1, False)]
+            + [("dots", 2, False)] * 2 + [("dots", 1, True)])
+    steps = {1: make_train_step(model, opt_cfg, 1),
+             2: make_train_step(model, opt_cfg, 2)}
+    peak = {}
+    walls = []
+    for i, (policy, accum, vlm) in enumerate(plan):
+        set_policy(policy)
+        bt = batch(i + 1, patches=vlm)
+        s_tot = TRAIN_S + (cfg.num_patches if vlm else 0)
+        snap = [p.clone() for p in leaves] if i == 0 else None
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = steps[accum](params, opt, bt)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        loss, gnorm, lr = (float(m["loss"]), float(m["grad_norm"]),
+                           float(m["lr"]))
+        flops = _train_flops(cfg, n, TRAIN_B, s_tot)
+        share = flops / (ms / 1e3) / PEAK_FLOPS["float32"]
+        tag = f", {cfg.num_patches} patches" if vlm else ""
+        print(f"  step {i + 1} [{policy}, accum {accum}, S={s_tot}{tag}]: "
+              f"{ms:.1f} ms, "
+              f"{TRAIN_B * s_tot / (ms / 1e3):.0f} tokens/s, peak "
+              f"{mem:.2f} GiB, loss {loss:.6f}, grad_norm {gnorm:.6f}, lr "
+              f"{lr:.4e}, model FLOPs {flops:.4e} = {share:.1%} of the f32 "
+              f"peak")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            fail(f"phase 13: step {i + 1} loss {loss} grad_norm {gnorm}")
+        if snap is not None:
+            still = [j for j, (a, b) in enumerate(zip(snap, leaves))
+                     if torch.equal(a, b)]
+            del snap
+            if still:
+                fail(f"phase 13: parameter leaves {still} did not move in "
+                     f"step 1")
+        if accum == 1 and not vlm:
+            walls.append((policy, ms))
+            if i > 0:  # step 1 also holds the snapshot of the weights
+                peak[policy] = mem
+    print("  peak memory by remat policy (B=8, S=256): " + ", ".join(
+        f"{p} {g:.2f} GiB" for p, g in peak.items()) + "; dots steps "
+        f"{', '.join(f'{ms:.1f}' for p, ms in walls if p == 'dots')} ms")
+    if not peak["none"] > peak["dots"] > peak["full"]:
+        fail(f"phase 13: peak memory by policy {peak}: remat saved nothing")
+
+    # where a "dots" step's time goes: the forward alone, forward and
+    # backward, the update (CUDA events, median of 3; the updates move the
+    # weights, which nothing reads after this)
+    set_policy("dots")
+    bt = batch(len(plan) + 1)
+
+    def forward():
+        with torch.no_grad():
+            model.loss(params, bt)
+
+    t_fwd = _event_ms(forward)
+    t_grad = _event_ms(lambda: loss_and_grads(model, params, bt))
+    grads = loss_and_grads(model, params, bt)[2]
+    t_opt = _event_ms(lambda: adamw_update(params, grads, opt, opt_cfg))
+    del grads
+    print(f"  a dots step split (B=8, S=256): forward {t_fwd:.1f} ms, "
+          f"forward + backward {t_grad:.1f} ms, AdamW update {t_opt:.1f} ms "
+          f"(CUDA events, median of 3)")
+    if ops.launches() != before:
+        fail(f"phase 13: training launched hand kernels: {before} -> "
+             f"{ops.launches()}")
+    del params, opt, leaves, steps, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    small = build_model(reduced_config("qwen2-vl-2b").replace(
+        dtype="float32"), attn_impl="cuda", device="cuda")
+    toks = torch.full((1, 16), 5, dtype=torch.int32, device="cuda")
+    try:
+        small.loss(small.init(0), {"tokens": toks, "labels": toks})
+    except NotImplementedError as e:
+        print(f"  attn_impl 'cuda' refuses loss: {e}")
+    else:
+        fail("phase 13: a loss under attn_impl 'cuda' did not raise")
+
+
+def _ckpt_leaves(directory, step):
+    """{name: array} of a checkpoint directory, read as numpy."""
+    import numpy as np
+
+    d = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        names = json.load(f)["leaves"]
+    return {k: np.load(os.path.join(d, k + ".npy")) for k in names}
+
+
+def _max_rel(got, want):
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                        1e-30)))
+
+
+def train_trainer_resume():
+    """Phase 13 (b): ``repro_torch.launch.train --arch qwen2-vl-2b
+    --reduced --steps 12 --ckpt-every 6`` on the card into a temporary
+    directory; its step-12 checkpoint moved aside, the same command
+    resumes from step 6 and must write a step-12 checkpoint equal to the
+    uninterrupted one's parameters (and print the same step-10 loss). In
+    process, the
+    same trainer (log every step) on the card from weights drawn on the CPU
+    against the CPU's run from those weights: the 12-step loss histories
+    within 1e-4 relative; a trainer resumed from the card run's step-6
+    checkpoint repeats its last 6 losses (1e-6); the card's step-12
+    checkpoint restores on the CPU with leaves equal to the card's."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import tree_flatten_with_path
+    from repro_torch.config import (OptimizerConfig, ShardingConfig,
+                                    TrainConfig)
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.training import Trainer, init_opt_state
+    from repro_torch.training.optimizer import tree_map
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory(prefix="phase13_") as tmp:
+        d1 = os.path.join(tmp, "launcher")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "qwen2-vl-2b", "--reduced", "--steps", "12", "--ckpt-every",
+               "6", "--ckpt-dir", d1]
+        runs = []
+        for label in ("uninterrupted", "resumed"):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                                  text=True, timeout=600)
+            print(f"  $ repro_torch.launch.train --arch qwen2-vl-2b --reduced"
+                  f" --steps 12 --ckpt-every 6 ({label}, "
+                  f"{time.perf_counter() - t0:.1f}s)")
+            for line in proc.stdout.splitlines():
+                print(f"  | {line}")
+            if proc.returncode != 0:
+                fail(f"phase 13: launcher ({label}) exit {proc.returncode}:\n"
+                     f"{proc.stderr[-3000:]}")
+            runs.append(proc.stdout)
+            if label == "uninterrupted":
+                ref12 = _ckpt_leaves(d1, 12)
+                shutil.rmtree(os.path.join(d1, "step_00000012"))
+        step10 = [[ln for ln in out.splitlines() if "step=10 " in ln]
+                  for out in runs]
+        if "[trainer] resumed from step 6" not in runs[1]:
+            fail("phase 13: the second launcher run did not resume from 6")
+        if not step10[0] or [ln.split(" (")[0] for ln in step10[0]] != [
+                ln.split(" (")[0] for ln in step10[1]]:
+            fail(f"phase 13: step-10 loss lines differ: {step10}")
+        res12 = _ckpt_leaves(d1, 12)
+        if set(res12) != set(ref12):
+            fail("phase 13: the resumed launcher's step 12 has other leaves")
+        worst = {}
+        for k, v in ref12.items():
+            part = "params" if k.startswith("params.") else "opt"
+            err = float(np.max(np.abs(res12[k].astype(np.float64)
+                                      - v.astype(np.float64)))
+                        / max(float(np.max(np.abs(v))), 1e-30))
+            worst[part] = max(worst.get(part, 0.0), err)
+        print(f"  launcher resumed at 6 -> step-12 checkpoint vs "
+              f"uninterrupted: {len(ref12)} leaves, max |diff| / max|leaf| "
+              f"params {worst['params']:.3e}, optimizer state "
+              f"{worst['opt']:.3e}")
+        if worst["params"] > RESUME_RTOL:
+            fail(f"phase 13: resumed launcher's step-12 params differ "
+                 f"({worst['params']})")
+
+        mcfg = reduced_config("qwen2-vl-2b").replace(dtype="float32")
+        p0 = build_model(mcfg, device="cpu").init(0)
+
+        def trainer(device, directory, params=None):
+            tc = TrainConfig(batch_size=TRAIN_B, seq_len=TRAIN_S, steps=12,
+                             log_every=1, checkpoint_every=6,
+                             checkpoint_dir=directory,
+                             optimizer=OptimizerConfig(lr=TRAIN_LR,
+                                                       total_steps=12),
+                             sharding=ShardingConfig())
+            t = Trainer(tc, model=build_model(mcfg, param_dtype="float32",
+                                              device=device))
+            if params is not None:
+                t.params = tree_map(
+                    lambda x: x.to(t.model.device, copy=True), params)
+                t.opt_state = init_opt_state(t.params, tc.optimizer)
+            return t
+
+        def train(t, steps=None):  # the history, the per-step log kept quiet
+            with contextlib.redirect_stdout(io.StringIO()):
+                return [loss for _, loss in t.train(steps)]
+
+        hist = {}
+        card = None
+        for device in ("cuda", "cpu"):
+            t = trainer(device, os.path.join(tmp, device), p0)
+            t0 = time.perf_counter()
+            hist[device] = train(t)
+            print(f"  reduced trainer on {device}: 12 steps in "
+                  f"{time.perf_counter() - t0:.2f}s, losses "
+                  f"{' '.join(f'{x:.6f}' for x in hist[device])}")
+            if device == "cuda":
+                card = t
+        rel = _max_rel(hist["cuda"], hist["cpu"])
+        print(f"  card vs CPU loss history: max rel diff {rel:.3e} "
+              f"(tolerance {CARD_CPU_RTOL:g})")
+        if not np.all(np.isfinite(hist["cuda"])) or rel > CARD_CPU_RTOL:
+            fail(f"phase 13: card {hist['cuda']} vs CPU {hist['cpu']}")
+
+        d3 = os.path.join(tmp, "resume")
+        shutil.copytree(os.path.join(tmp, "cuda", "step_00000006"),
+                        os.path.join(d3, "step_00000006"))
+        t = trainer("cuda", d3)
+        with contextlib.redirect_stdout(io.StringIO()):
+            t.initialize()
+        if t.step != 6:
+            fail(f"phase 13: the in-process trainer resumed at {t.step}")
+        resumed = train(t, 6)
+        rel = _max_rel(resumed, hist["cuda"][6:])
+        print(f"  resumed from step 6 on the card: losses 7-12 vs "
+              f"uninterrupted max rel diff {rel:.3e} (tolerance "
+              f"{RESUME_RTOL:g})")
+        if rel > RESUME_RTOL:
+            fail(f"phase 13: resumed {resumed} vs {hist['cuda'][6:]}")
+
+        like = {"params": _tree_to(card.params, "cpu"),
+                "opt": card.opt_state._replace(
+                    step=card.opt_state.step.cpu(),
+                    m=_tree_to(card.opt_state.m, "cpu"),
+                    v=_tree_to(card.opt_state.v, "cpu"))}
+        step, back = card.ckpt.restore(like)
+        got, want = ([x for _, x in tree_flatten_with_path(tree)]
+                     for tree in (back, like))
+        if step != 12 or not all(g.device.type == "cpu" and torch.equal(g, w)
+                                 for g, w in zip(got, want)):
+            fail("phase 13: the card's step-12 checkpoint does not restore "
+                 "on the CPU with equal leaves")
+        print(f"  the card's step-12 checkpoint restores on the CPU: "
+              f"{len(got)} leaves equal")
+
+
+def phase_train():
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_full_width()
+    train_trainer_resume()
+    print(f"  phase 13 wall {time.perf_counter() - t0:.1f}s")
+
+
 def phase_launcher():
     """The launcher's default run, then its warm-serving and migration
     flags (phase 8 (d)), which must print the ``sessions:`` line, then
@@ -2835,7 +3227,7 @@ def phase_launcher():
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2902,6 +3294,11 @@ def main() -> None:
               "full width, 8 layers; whisper-small at full width and depth; "
               "reduced parity)")
         phase_moe_encdec(records)
+    if 13 in phases:
+        print("phase 13: training (full-width qwen2-vl-2b f32 train steps "
+              "under each remat policy; the trainer's launcher, resume and "
+              "card-vs-CPU history at reduced size)")
+        phase_train()
     if 7 in phases:
         print("phase 7: launcher")
         phase_launcher()

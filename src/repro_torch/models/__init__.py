@@ -5,21 +5,24 @@ from typing import Union
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShardingConfig
 
 
 def build_model(cfg: ModelConfig, attn_impl: str = "auto",
                 param_dtype: str = "", decode_impl: str = "auto",
                 device: Union[str, torch.device] = "cuda",
-                moe_impl: str = "auto"):
+                moe_impl: str = "auto",
+                sharding: ShardingConfig = ShardingConfig()):
     """Construct the family-appropriate model on ``device`` (default
     ``cuda``; raises when no card is present): ``EncDecLM`` for ``encdec``,
-    ``DecoderLM`` for every other family of the zoo."""
+    ``DecoderLM`` for every other family of the zoo. Of ``sharding`` only
+    ``remat_policy`` is read (by ``loss``)."""
     if cfg.family == "encdec":
         from repro_torch.models.encdec import EncDecLM
 
         return EncDecLM(cfg, attn_impl=attn_impl, param_dtype=param_dtype,
-                        decode_impl=decode_impl, device=device)
+                        decode_impl=decode_impl, device=device,
+                        sharding=sharding)
     from repro_torch.models.transformer import FAMILIES, DecoderLM
 
     if cfg.family not in FAMILIES:
@@ -28,4 +31,4 @@ def build_model(cfg: ModelConfig, attn_impl: str = "auto",
             f"(encdec, {', '.join(FAMILIES)})")
     return DecoderLM(cfg, attn_impl=attn_impl, param_dtype=param_dtype,
                      decode_impl=decode_impl, device=device,
-                     moe_impl=moe_impl)
+                     moe_impl=moe_impl, sharding=sharding)

@@ -20,6 +20,10 @@ The cache keeps the JAX leaf names: ``self/{k,v}`` ``(L, B, T, K, hd)``,
 ``cross/{k,v}`` ``(L, B, F, K, hd)`` over the F encoder frames,
 ``cross_pos`` ``(B, F)``, ``pos`` ``(B, T)``, ``index`` ``(B,)``. As in
 ``DecoderLM``, ``decode_step`` updates it in place.
+
+``loss`` trains as the JAX package does: every encoder layer and every
+decoder layer under ``sharding.remat_policy``, the chunked cross entropy
+over the tied embedding with no mask.
 """
 from __future__ import annotations
 
@@ -28,14 +32,15 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShardingConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (apply_rope, embed, layer_norm,
                                        pad_vocab, rope_freqs, unembed)
 from repro_torch.models.mlp import mlp_forward, mlp_specs
 from repro_torch.models.spec import ParamSpec, init_tree
 from repro_torch.models.transformer import (ATTN_IMPLS, DTYPES, _layer,
-                                            resolve_device)
+                                            _remat, check_trainable,
+                                            chunked_ce, resolve_device)
 
 #: the query position of a cross-attention decode read: past every frame
 CROSS_POS_Q = 10 ** 9
@@ -69,7 +74,8 @@ class EncDecLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, attn_impl: str = "auto",
                  param_dtype: str = "", decode_impl: str = "auto",
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 sharding: ShardingConfig = ShardingConfig()):
         super().__init__()
         if cfg.family != "encdec":
             raise ValueError(f"EncDecLM serves encdec, not {cfg.family!r}")
@@ -79,6 +85,7 @@ class EncDecLM(nn.Module):
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.decode_impl = decode_impl
+        self.sharding = sharding  # only remat_policy is read
         self.v_pad = pad_vocab(cfg.vocab_size)
         self.dtype = DTYPES[param_dtype or cfg.dtype]
         self.device = resolve_device(device)
@@ -201,28 +208,40 @@ class EncDecLM(nn.Module):
     # encoder / decoder stacks
     # ------------------------------------------------------------------
 
-    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
-        """frames (B, F, frontend_dim) -> encoder output (B, F, D)."""
+    def _remat_layer(self, fn, mode):
+        """``fn`` (one layer) under the remat policy in "train" mode."""
+        return _remat(fn, self.sharding.remat_policy if mode == "train"
+                      else "none")
+
+    def encode(self, params, frames: torch.Tensor,
+               mode: str = "full") -> torch.Tensor:
+        """frames (B, F, frontend_dim) -> encoder output (B, F, D); each
+        layer under the remat policy in "train" mode."""
         cfg = self.cfg
         x = torch.matmul(frames.to(self.dtype), params["proj_in"])
         x = x + params["enc_pos"][None].to(self.dtype)
         b, s, _ = x.shape
         pos = torch.arange(s, dtype=torch.int32, device=x.device)[
             None].expand(b, s)
-        for l in range(cfg.encoder_layers):
-            lp = _layer(params["enc_blocks"], l)
+
+        def layer(lp, x):
             h = _ln(x, lp["ln1"], cfg.norm_eps)
             o, _ = self._mha(lp["attn"], h, h, pos, pos, causal=False)
             x = x + o
             h = _ln(x, lp["ln2"], cfg.norm_eps)
-            x = x + mlp_forward(lp["mlp"], h, cfg.activation).to(x.dtype)
+            return x + mlp_forward(lp["mlp"], h, cfg.activation).to(x.dtype)
+
+        layer = self._remat_layer(layer, mode)
+        for l in range(cfg.encoder_layers):
+            x = layer(_layer(params["enc_blocks"], l), x)
         return _ln(x, params["enc_ln_f"], cfg.norm_eps)
 
     def _decode_stack(self, params, x, enc_out, mode, cache=None,
                       positions=None, idx=None):
-        """Decoder layers. "full"/"prefill" attend ``enc_out`` (prefill
-        returns the stacked self and cross (k, v)); "decode" reads and
-        writes ``cache`` in place at write index ``idx``."""
+        """Decoder layers. "full"/"prefill"/"train" attend ``enc_out``
+        (prefill returns the stacked self and cross (k, v); train runs each
+        layer under the remat policy); "decode" reads and writes ``cache``
+        in place at write index ``idx``."""
         cfg = self.cfg
         b, s, _ = x.shape
         if mode == "decode":
@@ -234,33 +253,39 @@ class EncDecLM(nn.Module):
             se = enc_out.shape[1]
             enc_pos = torch.arange(se, dtype=torch.int32, device=x.device)[
                 None].expand(b, se)
-        ys = {"self": ([], []), "cross": ([], [])}
-        for l in range(cfg.num_layers):
-            lp = _layer(params["dec_blocks"], l)
+
+        def layer(lp, x, l):
             h = _ln(x, lp["ln1"], cfg.norm_eps)
             if mode == "decode":
-                o, _ = self._mha(lp["self_attn"], h, h, pos, pos_kv, True,
-                                 "decode", cache["self"], idx, layer=l)
+                o, kv_self = self._mha(lp["self_attn"], h, h, pos, pos_kv,
+                                       True, "decode", cache["self"], idx,
+                                       layer=l)
             else:
-                o, kv = self._mha(lp["self_attn"], h, h, pos, pos, True, mode)
-                if kv is not None:
-                    ys["self"][0].append(kv[0])
-                    ys["self"][1].append(kv[1])
+                o, kv_self = self._mha(lp["self_attn"], h, h, pos, pos, True,
+                                       mode)
             x = x + o
             h = _ln(x, lp["ln_x"], cfg.norm_eps)
             if mode == "decode":
-                o, _ = self._mha(lp["cross_attn"], h, None, pos, cross_pos,
-                                 False, "cross_cached", cache["cross"],
-                                 layer=l)
+                o, kv_cross = self._mha(lp["cross_attn"], h, None, pos,
+                                        cross_pos, False, "cross_cached",
+                                        cache["cross"], layer=l)
             else:
-                o, kv = self._mha(lp["cross_attn"], h, enc_out, pos, enc_pos,
-                                  False, mode)
-                if kv is not None:
-                    ys["cross"][0].append(kv[0])
-                    ys["cross"][1].append(kv[1])
+                o, kv_cross = self._mha(lp["cross_attn"], h, enc_out, pos,
+                                        enc_pos, False, mode)
             x = x + o
             h = _ln(x, lp["ln2"], cfg.norm_eps)
             x = x + mlp_forward(lp["mlp"], h, cfg.activation).to(x.dtype)
+            return x, kv_self, kv_cross
+
+        layer = self._remat_layer(layer, mode)
+        ys = {"self": ([], []), "cross": ([], [])}
+        for l in range(cfg.num_layers):
+            x, kv_self, kv_cross = layer(_layer(params["dec_blocks"], l), x,
+                                         l)
+            for key, kv in (("self", kv_self), ("cross", kv_cross)):
+                if kv is not None:
+                    ys[key][0].append(kv[0])
+                    ys[key][1].append(kv[1])
         x = _ln(x, params["dec_ln_f"], cfg.norm_eps)
         if mode != "prefill":
             return x, None
@@ -270,6 +295,20 @@ class EncDecLM(nn.Module):
     # ------------------------------------------------------------------
     # modes
     # ------------------------------------------------------------------
+
+    def loss(self, params, batch):
+        """Mean cross entropy over every decoder position. batch: frames
+        (B, F, frontend_dim), tokens, labels (B, S). Returns (ce, {"ce",
+        "aux"}), aux zero."""
+        check_trainable(self.attn_impl)
+        enc = self.encode(params, batch["frames"], "train")
+        x = embed(batch["tokens"], params["embed"]).to(self.dtype)
+        x, _ = self._decode_stack(params, x, enc, "train")
+        labels = batch["labels"]
+        ce = chunked_ce(x, params["embed"][:self.cfg.vocab_size].float(),
+                        labels, torch.ones_like(labels, dtype=torch.float32))
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                                 device=x.device)}
 
     def unembed_table_f32(self, params) -> torch.Tensor:
         """The tied embedding sliced to the true vocab, in float32 (a

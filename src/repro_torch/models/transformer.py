@@ -18,6 +18,11 @@ ring of ``w = min(capacity, local_window)`` rows where position p lives at
 row p % w, ``extra/{conv,h}`` for layers past the last whole pattern, and
 ``pos``/``index`` ``(B, w)``/``(B,)`` over the ring.
 
+Training (``loss``) runs the "train" mode: the full sequence, no cache,
+each layer (each pattern repeat for ``hybrid``) under the
+``sharding.remat_policy`` rematerialisation, and the cross entropy in
+sequence chunks.
+
 Unlike the JAX package, decode updates the cache IN PLACE: ``decode_step``
 (one token) and ``decode_chunk`` (S tokens against the cache, the suffix
 prefill of a warm admission) write ``pos`` / ``index`` and each layer's new
@@ -27,12 +32,15 @@ families' decode, which overwrite each layer's conv window and state.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShardingConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -62,6 +70,73 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
                            f"is available; pass device='cpu' to run on the "
                            f"CPU")
     return dev
+
+
+#: the products whose outputs the "dots" policy keeps (``dots_saveable``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the JAX package's remat policy: "none" keeps every
+    activation for the backward pass, "full" keeps only ``fn``'s inputs and
+    recomputes the rest (``nothing_saveable``), "dots" keeps the matmul
+    outputs and recomputes the rest (``dots_saveable``)."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"remat policy {policy!r} not in none, dots, full")
+
+
+def check_trainable(attn_impl: str) -> None:
+    """Refuse a loss under the attention kernel or its stand-in: the kernel
+    has no backward (its wrapper returns a tensor with no ``grad_fn``, so
+    every q/k/v projection would get no gradient), nor has the JAX
+    package's Pallas kernel. "torch" stands in for "cuda" on the CPU, so it
+    is refused too: it would train where the card cannot."""
+    if attn_impl in ("cuda", "torch"):
+        raise NotImplementedError(
+            f"attn_impl {attn_impl!r} cannot train: the flash-attention "
+            f"kernel has no backward kernel (its output carries no "
+            f"gradient); build the model with attn_impl='auto' to train")
+
+
+def _ce_chunk(h, table, labels, mask):
+    logits = unembed(h.float(), table)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def chunked_ce(hidden: torch.Tensor, table: torch.Tensor,
+               labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean cross entropy over (B, S) positions, the logits made and
+    kept one sequence chunk at a time (the JAX package's ``_chunked_ce``):
+    the first of 8, 4, 2, 1 chunks that divides S and leaves >= 128 rows,
+    each chunk recomputed in the backward pass. ``table``: (V, D) float32,
+    the true vocab; ``mask``: float32."""
+    b, s, _ = hidden.shape
+    nc = next((c for c in (8, 4, 2, 1) if s % c == 0 and s // c >= 128), 1)
+    c = s // nc
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for j in range(nc):
+        sl = slice(j * c, (j + 1) * c)
+        t, n = checkpoint(_ce_chunk, hidden[:, sl], table, labels[:, sl],
+                          mask[:, sl], use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def attn_specs(cfg: ModelConfig, prefix_axes=(), include_mlp=True,
@@ -118,7 +193,8 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, attn_impl: str = "auto",
                  param_dtype: str = "", decode_impl: str = "auto",
                  device: Union[str, torch.device] = "cuda",
-                 moe_impl: str = "auto"):
+                 moe_impl: str = "auto",
+                 sharding: ShardingConfig = ShardingConfig()):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(f"DecoderLM serves {', '.join(FAMILIES)}, not "
@@ -133,6 +209,8 @@ class DecoderLM(nn.Module):
         self.attn_impl = attn_impl
         self.moe_impl = moe_impl
         self.decode_impl = decode_impl
+        # only ``remat_policy`` is read: the mesh knobs have no counterpart
+        self.sharding = sharding
         self.v_pad = pad_vocab(cfg.vocab_size)
         self.dtype = DTYPES[param_dtype or cfg.dtype]
         self.device = resolve_device(device)
@@ -400,6 +478,8 @@ class DecoderLM(nn.Module):
                                             h_state=lcache["h"])
         else:
             x, new_cache = rglru_mod.rglru_forward(lp, x, cfg)
+            if mode == "train":
+                new_cache = None
         if lcache is not None:
             lcache["conv"].copy_(nc["conv"])
             lcache["h"].copy_(nc["h"])
@@ -412,6 +492,11 @@ class DecoderLM(nn.Module):
         if cfg.family == "ssm":
             return None, None
         return rope_freqs(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+    def _remat_layer(self, fn, mode):
+        """``fn`` (one layer) under the remat policy in "train" mode."""
+        return _remat(fn, self.sharding.remat_policy if mode == "train"
+                      else "none")
 
     def _stack(self, params, x, positions, mode, cache, ctx=None,
                idx=None):
@@ -430,12 +515,13 @@ class DecoderLM(nn.Module):
         pos_kv = cache["pos"] if cache is not None else None
         pages = cache.get("pages") if cache is not None else None
         layer_caches = {}
+        block = self._remat_layer(self._attn_block, mode)
         for key, n_layers, moe in self._kv_groups():
             lcache = cache[key] if cache is not None else None
             ks, vs = [], []
             for l in range(n_layers):
                 lp = _layer(params[key], l)
-                x, kv, aux = self._attn_block(
+                x, kv, aux = block(
                     lp, x, cos, sin, positions, pos_kv, mode, None, lcache,
                     idx, layer=l, ctx=ctx, pages=pages, moe=moe)
                 if aux is not None:
@@ -450,16 +536,18 @@ class DecoderLM(nn.Module):
 
     def _ssm_stack(self, params, x, mode, cache):
         """Mamba-2 layers. Prefill returns the stacked conv windows and
-        states; decode and the suffix pass ("ringchunk") start from the
-        cache and overwrite it in place."""
+        states (train returns none); decode and the suffix pass
+        ("ringchunk") start from the cache and overwrite it in place."""
         cfg = self.cfg
         convs, hs = [], []
+        forward = self._remat_layer(ssm_mod.ssd_forward, mode)
         for l in range(cfg.num_layers):
             lp = _layer(params["blocks"], l)
             if cache is None:
-                x, nc = ssm_mod.ssd_forward(lp, x, cfg)
-                convs.append(nc["conv"])
-                hs.append(nc["h"])
+                x, nc = forward(lp, x, cfg)
+                if mode != "train":
+                    convs.append(nc["conv"])
+                    hs.append(nc["h"])
                 continue
             lc = _layer(cache["blocks"], l)
             if mode == "decode":
@@ -486,9 +574,7 @@ class DecoderLM(nn.Module):
         win = cfg.local_window
         pos_kv = cache["pos"] if cache is not None else None
         rep_c = cache["repeats"] if cache is not None else None
-        rg, ks, vs = [], [], []
-        for r in range(reps):
-            lp = _layer(params["repeats"], r)
+        def repeat(lp, x, r):
             units = []
             for i in range(n_rec):
                 subc = (None if rep_c is None else
@@ -499,6 +585,12 @@ class DecoderLM(nn.Module):
             x, kv, _ = self._attn_block(
                 lp["attn"], x, cos, sin, positions, pos_kv, mode, win,
                 None if rep_c is None else rep_c["attn"], idx, layer=r)
+            return x, units, kv
+
+        repeat = self._remat_layer(repeat, mode)  # per repeat, as in JAX
+        rg, ks, vs = [], [], []
+        for r in range(reps):
+            x, units, kv = repeat(_layer(params["repeats"], r), x, r)
             if kv is not None:
                 rg.append(units)
                 ks.append(kv[0])
@@ -555,6 +647,30 @@ class DecoderLM(nn.Module):
                                            ctx, idx)
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         return x, aux, layer_caches, prefix
+
+    def loss(self, params, batch):
+        """Mean cross entropy (+ the MoE aux loss times
+        ``router_aux_coef``). batch: tokens, labels (B, S), optional
+        patches and loss_mask; the vision prefix takes no loss. Returns
+        (total, {"ce", "aux"})."""
+        check_trainable(self.attn_impl)
+        hidden, aux, _, prefix = self.forward(params, batch, "train")
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones_like(labels, dtype=torch.float32)
+        if prefix:
+            b = labels.shape[0]
+            labels = torch.cat([labels.new_zeros((b, prefix)), labels], 1)
+            mask = torch.cat([mask.new_zeros((b, prefix)), mask], 1)
+        # the table under autograd, never ``unembed_table_f32``'s copy: an
+        # in-place optimizer step keeps its storage, so the copy would be
+        # stale, and it would carry an earlier step's graph
+        table = params["embed"] if self.cfg.tie_embeddings \
+            else params["unembed"]
+        ce = chunked_ce(hidden, table[:self.cfg.vocab_size].float(), labels,
+                        mask.float())
+        return ce + self.cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
     def unembed_table_f32(self, params) -> torch.Tensor:
         """The unembedding table sliced to the true vocab, in float32. A

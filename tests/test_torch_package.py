@@ -25,7 +25,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
             "repro_torch.serving.tiers, repro_torch.kernels.ops, "
             "repro_torch.serving.simulator, repro_torch.models.moe, "
-            "repro_torch.models.encdec\n"
+            "repro_torch.models.encdec, repro_torch.training, "
+            "repro_torch.checkpoint, repro_torch.launch.train\n"
             "import numpy as np, torch\n"
             "from repro_torch.serving.engine import SeqState, SlotPayload\n"
             "k = torch.randn(2, 8, 2, 4).to(torch.bfloat16)\n"
@@ -131,6 +132,19 @@ def test_cuda_without_a_card_raises():
             build_model(reduced_config(arch))
     with pytest.raises((RuntimeError, AssertionError)):
         image_complexity(np.zeros((1, 8, 8), np.float32))  # kernel -> cuda
+
+
+def test_train_launcher_without_a_card_raises(tmp_path):
+    """``repro_torch.launch.train`` trains on ``cuda`` unless told
+    ``--device cpu``, and raises (never falls back) without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.launch import train
+
+    for extra in ([], ["--arch", "qwen2-vl-2b", "--reduced"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--steps", "1", "--ckpt-dir", str(tmp_path), *extra])
+    assert not any(tmp_path.iterdir())
 
 
 def test_copied_configs_match_reference():

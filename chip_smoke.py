@@ -126,6 +126,23 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      history against the CPU's from the same weights (1e-4), a resume from
      step 6 against the uninterrupted losses (1e-6), and the card's
      checkpoint restored on the CPU with equal leaves;
+  14. the distribution layer, on a one-rank NCCL (1, 1) ("data", "model")
+     mesh over the card: (a) full-width qwen3-moe (8 of 94 layers, bf16): a
+     320-token prefill on the mesh (moe_impl "auto", the expert-parallel
+     dropping path) bitwise equal to the mesh-free dropping path, two runs
+     of each bitwise equal, timed in turns; decode2d on the mesh against
+     the mesh-free one on a B=4 decode step's input; (b) the full-width
+     qwen2-vl-2b f32 Trainer on the mesh against the mesh-free one, two
+     steps each from the same seed, losses and grad norms within 1e-5,
+     step walls in turns; (c) a reduced trainer's checkpoint restored onto
+     the mesh by ``elastic_restore_tree`` bitwise equal to
+     ``Checkpointer.restore``; (d) ``python -m repro_torch.launch.dryrun``
+     on the host's CPU (started before phase 13, beside it and (a)-(c)):
+     qwen3-0.6b train_4k on the 256- and 512-rank production meshes and
+     qwen3-moe
+     decode_32k with --moe-2d, each record printed (per-device FLOPs,
+     argument, collective and HBM bytes, the H100 data-sheet roofline,
+     the cell's wall). No hand kernel may launch on a mesh;
   7. ``python -m repro_torch.launch.serve --requests 4 --max-new 4``, then
      with ``--sessions 2 --turns 2 --prefix-cache-mb 64 --migrate``, which
      must print its ``sessions:`` line (phase 8 (d)), with ``--speculate
@@ -134,7 +151,7 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      phase 9 (d)). Phase 7 runs last.
 
 The line before the last is the kernels' JSON record (launches: phases 4,
-5, 8, 9, 10, 11 and 12 together, phase 13 launching none; each attention
+5, 8, 9, 10, 11 and 12 together, phases 13 and 14 launching none; each attention
 kernel's zoo shapes timed under "shapes", and every (dtype, hd, group)
 held in phase 3 with its worst error under "instantiations"); the last
 line is ``{"ok": true, "device": {...}}``.
@@ -2605,6 +2622,7 @@ def qwen3_moe_full_width(records):
     for rid in sorted(done):
         print(f"    rid={rid} prompt={len(prompts[rid][0])} "
               f"tokens={done[rid][:6]}...")
+    del eng._admit_group  # the counting hook holds the engine: no cycle
     eng = TierEngine(model, params, sv)
     for rid, (toks, _) in enumerate(prompts):
         eng.submit(rid, toks, max_new=64)
@@ -2802,14 +2820,19 @@ def phase_moe_encdec(records):
     import torch
 
     t0 = time.perf_counter()
-    # a paged engine sits in a reference cycle (its prefix store's eviction
-    # hook is a bound method): earlier phases' engines, and the weights they
-    # hold, are freed only by the cycle collector
+    # a dropped engine frees its weights at once, but the cluster runtime
+    # that served phase 11's engines (``ClusterServer``; its copied
+    # ``runtime.py`` keeps a handler table of its own bound methods, and
+    # ``LiveBackend`` hangs callbacks that close over it on each engine)
+    # sits in reference cycles that hold those engines: collect them
+    held = torch.cuda.memory_allocated()
     gc.collect()
+    print(f"  held from earlier phases: {held / 2**30:.2f} GiB, after "
+          f"collecting cycles {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     qwen3_moe_full_width(records)
-    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     whisper_full_width(records)
@@ -3190,6 +3213,349 @@ def phase_train():
     print(f"  phase 13 wall {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the distribution layer
+# ---------------------------------------------------------------------------
+
+#: the dry-run cells of phase 14 (d): the launcher's flags, one process each
+DRYRUN_CELLS = (
+    ("qwen3-0.6b_train_4k", ["--arch", "qwen3-0.6b", "--shape", "train_4k",
+                             "--mesh", "both"]),
+    ("qwen3-moe_decode_32k_moe2d", ["--arch", "qwen3-moe-235b-a22b",
+                                    "--shape", "decode_32k", "--mesh",
+                                    "single", "--moe-2d"]))
+DRYRUN_OUT = os.path.join(ROOT, "build", "phase14_dryrun")
+#: meshed vs mesh-free trainer on one rank: losses and grad norms (the
+#: mesh's loss masks the padded vocab tail and sums the gold logit instead
+#: of gathering it: the same value, another rounding)
+MESH_TRAIN_RTOL = 1e-5
+
+
+def start_dryruns():
+    """Phase 14 (d), started before phase 13: each cell of
+    :data:`DRYRUN_CELLS` runs ``python -m repro_torch.launch.dryrun`` on the
+    host's CPU (a fake process group of 256 or 512 ranks, one or two cores)
+    while phase 13 and 14 (a)-(c) hold the card (their times are CUDA
+    events)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    procs = []
+    for name, flags in DRYRUN_CELLS:
+        out = os.path.join(DRYRUN_OUT, name)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *flags,
+               "--out", out]
+        procs.append((name, flags, out, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def _one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh over cuda:0: a one-rank NCCL
+    process group."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    return make_debug_mesh(1, 1, device_type="cuda")
+
+
+def _replicated(tree, mesh):
+    """Each leaf of ``tree`` as a replicated DTensor on ``mesh`` (on one
+    rank: the same storage, no copy)."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.sharding import distribute
+
+    rep = [Replicate()] * mesh.ndim
+    return {k: (_replicated(v, mesh) if isinstance(v, dict)
+                else distribute(v, mesh, rep)) for k, v in tree.items()}
+
+
+def distribution_moe(mesh):
+    """Phase 14 (a): qwen3-moe-235b-a22b at full width, 8 of its 94 layers
+    (bf16, random weights from seed 0, attn_impl "auto"), on the (1, 1)
+    mesh with moe_impl "auto" (the expert-parallel dropping path) against
+    the mesh-free model under moe_impl "dropping": a 320-token prefill's
+    logits must be bitwise equal, and two runs of each bitwise equal (the
+    combine has no atomics); both timed by CUDA events in turns (median of
+    3). Then "decode2d" on the mesh against the mesh-free "decode2d" on one
+    B=4 decode step's MoE input (layer 0), timed alike."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import batch_shardings, distribute
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+
+    cfg = get_config("qwen3-moe-235b-a22b").replace(dtype="bfloat16",
+                                                    num_layers=8)
+    plain = build_model(cfg, attn_impl="auto", moe_impl="dropping",
+                        device="cuda")
+    meshed = build_model(cfg, attn_impl="auto", moe_impl="auto", mesh=mesh)
+    t0 = time.perf_counter()
+    params = plain.init(0)
+    pm = _replicated(params, mesh)
+    torch.cuda.synchronize()
+    shared = all(a.to_local().data_ptr() == b.data_ptr()
+                 for a, b in zip(_leaves(pm), _leaves(params)))
+    print(f"  qwen3-moe (8 layers, full width, bf16) drawn in "
+          f"{time.perf_counter() - t0:.1f}s; on the (1, 1) mesh as "
+          f"replicated DTensors {'sharing' if shared else 'COPYING'} the "
+          f"storage")
+    if not shared:
+        fail("phase 14 (a): the one-rank DTensors copied the weights")
+    rng = np.random.default_rng(12)
+    tokens = torch.as_tensor(rng.integers(4, cfg.vocab_size, (1, 320)),
+                             dtype=torch.int32, device="cuda")
+    pl = batch_shardings({"tokens": ("batch", "seq")},
+                         {"tokens": tokens.shape}, mesh)
+    tm = distribute(tokens, mesh, pl["tokens"])
+    run = {"mesh-free": lambda: plain.prefill(params, {"tokens": tokens},
+                                              512)[0],
+           "mesh": lambda: meshed.prefill(pm, {"tokens": tm},
+                                          512)[0].full_tensor()}
+    out = {k: [fn(), fn()] for k, fn in run.items()}
+    for k, (a, b) in out.items():
+        if not bool(torch.isfinite(a.float()).all()):
+            fail(f"phase 14 (a): {k} prefill logits are not finite")
+        if not torch.equal(a, b):
+            fail(f"phase 14 (a): two {k} prefills differ")
+    diff = float((out["mesh"][0].float() - out["mesh-free"][0].float()
+                  ).abs().max())
+    if not torch.equal(out["mesh"][0], out["mesh-free"][0]):
+        fail(f"phase 14 (a): prefill logits on the mesh differ from the "
+             f"mesh-free dropping path's (max {diff})")
+    ms = {"mesh-free": [], "mesh": []}
+    for k in ("mesh-free", "mesh", "mesh", "mesh-free"):  # in turns
+        ms[k].append(_event_ms(run[k]))
+    print(f"  qwen3-moe prefill S=320 on the (1, 1) mesh (moe auto -> "
+          f"expert-parallel dropping) == mesh-free dropping: bitwise; two "
+          f"runs of each bitwise | CUDA events, in turns (median of 3 "
+          f"each): mesh-free {', '.join(f'{x:.2f}' for x in ms['mesh-free'])}"
+          f" ms, mesh {', '.join(f'{x:.2f}' for x in ms['mesh'])} ms")
+    # decode2d on a mesh takes one capacity row more than the one-device
+    # body (as in the JAX package); at T=4, top-8 of 128 both take 1
+    caps = [max(1, int(4 * cfg.top_k / cfg.num_experts * cfg.capacity_factor)
+                + extra) for extra in (0, 1)]
+    if caps[0] != caps[1]:
+        fail(f"phase 14 (a): decode2d capacities differ at T=4: {caps}")
+    lp = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    lpm = _replicated(lp, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn((4, 1, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    xm = _replicated({"x": x}, mesh)["x"]
+    d2 = {"mesh-free": lambda: moe_mod.moe_forward(lp, x, cfg, "decode2d")[0],
+          "mesh": lambda: moe_mod.moe_forward(lpm, xm, cfg, "decode2d",
+                                              mesh=mesh)[0].full_tensor()}
+    ya, yb = d2["mesh-free"](), d2["mesh"]()
+    ddiff = float((ya.float() - yb.float()).abs().max())
+    scale = float(ya.float().abs().max())
+    if not bool(torch.isfinite(ya.float()).all()):
+        fail("phase 14 (a): mesh-free decode2d output is not finite")
+    if not torch.equal(ya, yb):
+        fail(f"phase 14 (a): decode2d on the mesh differs from mesh-free "
+             f"(max {ddiff} of max {scale})")
+    dms = {"mesh-free": [], "mesh": []}
+    for k in ("mesh-free", "mesh", "mesh", "mesh-free"):
+        dms[k].append(_event_ms(d2[k]))
+    print(f"  decode2d, one B=4 decode step's MoE input (layer 0): mesh vs "
+          f"mesh-free max |diff| {ddiff:.4g} of max {scale:.4g} "
+          f"(bitwise) | CUDA "
+          f"events in turns: mesh-free "
+          f"{', '.join(f'{v:.3f}' for v in dms['mesh-free'])} ms, mesh "
+          f"{', '.join(f'{v:.3f}' for v in dms['mesh'])} ms")
+    del plain, meshed, params, pm, lp, lpm, run, d2, out
+    torch.cuda.empty_cache()
+
+
+def distribution_trainer(mesh):
+    """Phase 14 (b): qwen2-vl-2b at its published widths and depth in f32
+    (TF32 off), ``Trainer`` on the (1, 1) mesh against ``Trainer`` without
+    one, both initialised from seed 0 on the card (equal weights), B=8,
+    S=256 batches from the trainer's stream: two steps each, in turns
+    (mesh-free, mesh, mesh, mesh-free), timed by CUDA events; losses and
+    grad norms equal to 1e-5 relative."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import (OptimizerConfig, ShardingConfig,
+                                    TrainConfig)
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import Trainer
+
+    cfg = get_config("qwen2-vl-2b").replace(dtype="float32")
+    trainers = {}
+    with tempfile.TemporaryDirectory(prefix="phase14_") as tmp:
+        for name, m in (("mesh-free", None), ("mesh", mesh)):
+            tc = TrainConfig(model="qwen2-vl-2b", batch_size=TRAIN_B,
+                             seq_len=TRAIN_S, steps=2,
+                             checkpoint_dir=os.path.join(tmp, name),
+                             optimizer=OptimizerConfig(
+                                 lr=TRAIN_LR, total_steps=TRAIN_TOTAL),
+                             sharding=ShardingConfig())
+            t = Trainer(tc, model=build_model(cfg, param_dtype="float32",
+                                              device="cuda", mesh=m), mesh=m)
+            t.initialize(resume=False)
+            trainers[name] = t
+    same = all(torch.equal(a.to_local(), b) for a, b in zip(
+        _leaves(trainers["mesh"].params), _leaves(trainers["mesh-free"].params)))
+    if not same:
+        fail("phase 14 (b): the two trainers' initial weights differ")
+    rec = {k: [] for k in trainers}
+    for step, order in ((0, ("mesh-free", "mesh")), (1, ("mesh", "mesh-free"))):
+        for name in order:
+            t = trainers[name]
+            batch = t._batch(step)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t.params, t.opt_state, m = t._step_fn(t.params, t.opt_state,
+                                                  batch)
+            end.record()
+            torch.cuda.synchronize()
+            rec[name].append((float(m["loss"]), float(m["grad_norm"]),
+                              start.elapsed_time(end)))
+    worst = 0.0
+    for (la, ga, _), (lb, gb, _) in zip(rec["mesh-free"], rec["mesh"]):
+        if not all(np.isfinite(v) for v in (la, ga, lb, gb)):
+            fail(f"phase 14 (b): not finite: {rec}")
+        worst = max(worst, abs(la - lb) / abs(la), abs(ga - gb) / abs(ga))
+    for name, r in rec.items():
+        print(f"  qwen2-vl-2b f32 Trainer {name}: " + "; ".join(
+            f"step {i + 1} loss {l:.7f} grad_norm {g:.6f} {ms:.1f} ms"
+            for i, (l, g, ms) in enumerate(r)))
+    print(f"  meshed vs mesh-free trainer: largest relative difference of a "
+          f"loss or grad norm {worst:.3e} (tolerance {MESH_TRAIN_RTOL:g}); "
+          f"step walls in turns (CUDA events) above")
+    if worst > MESH_TRAIN_RTOL:
+        fail(f"phase 14 (b): meshed trainer {rec['mesh']} vs mesh-free "
+             f"{rec['mesh-free']}")
+    del trainers
+    torch.cuda.empty_cache()
+
+
+def distribution_elastic(mesh):
+    """Phase 14 (c): phase 13 (b)'s reduced trainer (qwen2-vl-2b reduced,
+    f32, B=8, S=256, 6 steps, a checkpoint at 6), run again on the card;
+    its step-6 checkpoint restored onto the (1, 1) cuda mesh by
+    ``elastic_restore_tree`` equals ``Checkpointer.restore`` of the same
+    files, leaf by leaf, bitwise."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import elastic_restore_tree
+    from repro_torch.config import (OptimizerConfig, ShardingConfig,
+                                    TrainConfig)
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.training import Trainer
+
+    mcfg = reduced_config("qwen2-vl-2b").replace(dtype="float32")
+    with tempfile.TemporaryDirectory(prefix="phase14_") as tmp:
+        t = Trainer(TrainConfig(model="qwen2-vl-2b", batch_size=TRAIN_B,
+                                seq_len=TRAIN_S, steps=6,
+                                log_every=6, checkpoint_every=6,
+                                checkpoint_dir=tmp,
+                                optimizer=OptimizerConfig(lr=TRAIN_LR,
+                                                          total_steps=12),
+                                sharding=ShardingConfig()),
+                    model=build_model(mcfg, param_dtype="float32",
+                                      device="cuda"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            t.train()
+        like = {"params": t.params}
+        step_a, plain = t.ckpt.restore(like, step=6)
+        step_b, meshed = elastic_restore_tree(
+            t.ckpt, like, {"params": t.model.specs()}, mesh, step=6)
+        got = list(_leaves(meshed["params"]))
+        want = list(_leaves(plain["params"]))
+        if step_a != step_b or not all(
+                torch.equal(g.full_tensor(), w) and g.device_mesh is mesh
+                for g, w in zip(got, want)):
+            fail("phase 14 (c): the elastic restore differs from "
+                 "Checkpointer.restore")
+    print(f"  reduced trainer's step-6 checkpoint: elastic_restore_tree onto "
+          f"the (1, 1) cuda mesh == Checkpointer.restore, {len(got)} leaves "
+          f"bitwise")
+
+
+def _finish_dryruns(procs):
+    """Phase 14 (d): wait for the dry-run cells and print each record."""
+    for name, flags, out, t0, proc in procs:
+        stdout, stderr = proc.communicate(timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"phase 14 (d): dryrun {flags} exit {proc.returncode}:\n"
+                 f"{stderr[-3000:]}")
+        with open(os.path.join(out, "dryrun_summary.json")) as f:
+            recs = json.load(f)
+        print(f"  $ repro_torch.launch.dryrun {' '.join(flags)} "
+              f"({wall:.1f}s)")
+        for r in recs:
+            if not r.get("ok"):
+                fail(f"phase 14 (d): cell {r.get('arch')} {r.get('shape')} "
+                     f"{r.get('mesh')} failed: {r.get('error')}")
+            ro = r["roofline"]
+            print(f"  | {r['arch']} {r['shape']} {r['mesh']} "
+                  f"({r['devices']} ranks): per-device FLOPs "
+                  f"{r['per_device_flops']:.6g}, argument bytes "
+                  f"{r['memory']['argument_size_in_bytes']}, collective "
+                  f"bytes {r['collective_bytes_per_device']:.6g}, HBM bytes "
+                  f"{r['per_device_bytes']:.6g}; roofline (H100 SXM data "
+                  f"sheet) compute {ro['compute_s']:.4g} s, memory "
+                  f"{ro['memory_s']:.4g} s, collective "
+                  f"{ro['collective_s']:.4g} s -> {ro['dominant']}; model "
+                  f"FLOPs {r['model_flops']:.6g}; cell wall {r['wall_s']} s")
+
+
+def phase_distribution(procs):
+    """Phase 14: (a)-(c) on a one-rank NCCL mesh, then (d) collects the
+    dry-run cells ``procs`` (:func:`start_dryruns`). No hand kernel may
+    launch: the kernels take no DTensor."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.empty_cache()
+        before = ops.launches()
+        mesh = _one_rank_mesh()
+        try:
+            distribution_moe(mesh)
+            distribution_trainer(mesh)
+            distribution_elastic(mesh)
+        finally:
+            dist.destroy_process_group()
+        if ops.launches() != before:
+            fail(f"phase 14: a hand kernel launched on a mesh: {before} -> "
+                 f"{ops.launches()}")
+        _finish_dryruns(procs)
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"  phase 14 wall {time.perf_counter() - t0:.1f}s")
+
+
 def phase_launcher():
     """The launcher's default run, then its warm-serving and migration
     flags (phase 8 (d)), which must print the ``sessions:`` line, then
@@ -3227,7 +3593,8 @@ def phase_launcher():
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -3294,11 +3661,18 @@ def main() -> None:
               "full width, 8 layers; whisper-small at full width and depth; "
               "reduced parity)")
         phase_moe_encdec(records)
+    # phase 14 (d)'s dry-run cells run on the CPU beside phases 13 and 14
+    dryruns = start_dryruns() if 14 in phases else None
     if 13 in phases:
         print("phase 13: training (full-width qwen2-vl-2b f32 train steps "
               "under each remat policy; the trainer's launcher, resume and "
               "card-vs-CPU history at reduced size)")
         phase_train()
+    if 14 in phases:
+        print("phase 14: the distribution layer (expert-parallel qwen3-moe "
+              "and the meshed qwen2-vl-2b trainer on a one-rank NCCL mesh, "
+              "elastic restore, the dry-run on the host)")
+        phase_distribution(dryruns)
     if 7 in phases:
         print("phase 7: launcher")
         phase_launcher()

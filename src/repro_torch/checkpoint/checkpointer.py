@@ -13,7 +13,12 @@ Layout:  <dir>/step_<N>/<flattened.leaf.path>.npy  +  manifest.json
     renamed: a crash mid-save never corrupts the latest checkpoint;
   · ``save(async_=True)`` copies every leaf to host memory at once and
     writes in a daemon thread; a write error is raised by the next
-    ``wait()`` or ``save()``.
+    ``wait()`` or ``save()``;
+  · a tree of DTensors (a trainer on a mesh) is saved as full tensors
+    (``full_tensor()``, a collective every rank joins), so the files are
+    those of the same tree on one device; rank 0 writes them. ``restore``
+    lays each leaf out again on a DTensor ``tree_like`` leaf's mesh, or by
+    ``shardings`` on ``mesh`` (``repro_torch.checkpoint.elastic``).
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import distribute, distribute_tree
 
 _SAFE = re.compile(r"[^A-Za-z0-9_.-]")
 
@@ -70,9 +77,16 @@ def tree_map_with_path(fn: Callable[[Tuple[str, ...], Any], Any], tree: Any,
     return fn(path, tree)
 
 
+def _is_dtensor(x: Any) -> bool:
+    return hasattr(x, "placements") and hasattr(x, "full_tensor")
+
+
 def _host_copy(x: torch.Tensor) -> Tuple[np.ndarray, str]:
     """(array to store, logical numpy dtype name): a copy, since the
-    optimizer updates the tensor in place while the writer runs."""
+    optimizer updates the tensor in place while the writer runs. A DTensor
+    is gathered whole first."""
+    if _is_dtensor(x):
+        x = x.full_tensor()
     x = x.detach().to("cpu", copy=True)
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -115,8 +129,13 @@ class Checkpointer:
 
     def save(self, step: int, tree: Any, async_: bool = True) -> None:
         self.wait()  # one in-flight save at a time
-        leaves = [(_path_str(p),) + _host_copy(x)
-                  for p, x in tree_flatten_with_path(tree)]
+        flat = tree_flatten_with_path(tree)
+        leaves = [(_path_str(p),) + _host_copy(x) for p, x in flat]
+        if any(_is_dtensor(x) for _, x in flat):
+            import torch.distributed as dist
+
+            if dist.get_rank() != 0:
+                return  # the gathered copy is the same on every rank
         if async_:
             self._thread = threading.Thread(
                 target=self._write, args=(step, leaves), daemon=True)
@@ -161,11 +180,15 @@ class Checkpointer:
 
     # ------------------------------------------------------------------
 
-    def restore(self, tree_like: Any, step: Optional[int] = None
+    def restore(self, tree_like: Any, step: Optional[int] = None,
+                shardings: Optional[Any] = None, mesh=None
                 ) -> Tuple[int, Any]:
         """Restore into the structure of ``tree_like`` (the latest step by
         default); each leaf lands on its ``tree_like`` leaf's device, in
-        the stored dtype."""
+        the stored dtype. A DTensor leaf is laid out again with its mesh
+        and placements; ``shardings`` (a dict tree like ``tree_like`` of
+        DTensor placements) lays every leaf out on ``mesh`` instead
+        (elastic restore onto a mesh of any shape)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -177,6 +200,15 @@ class Checkpointer:
         def load(path, like):
             name = _path_str(path)
             arr = np.load(os.path.join(d, name + ".npy"))
-            return _from_file(arr, manifest[name]["dtype"]).to(like.device)
+            x = _from_file(arr, manifest[name]["dtype"])
+            if shardings is not None:
+                return x  # laid out below, leaf by leaf
+            if _is_dtensor(like):
+                return distribute(x.to(like.device), like.device_mesh,
+                                  like.placements)
+            return x.to(like.device)
 
-        return step, tree_map_with_path(load, tree_like)
+        tree = tree_map_with_path(load, tree_like)
+        if shardings is not None:
+            tree = distribute_tree(tree, shardings, mesh)
+        return step, tree

@@ -3,7 +3,8 @@
 The port keeps the JAX package's tree layout (names, layer-stacked shapes),
 so conversion is a copy: nested dicts of numpy arrays (for example
 ``jax.device_get(model.init(PRNGKey(i)))``) become nested dicts of tensors
-on ``device``. Only the input is numpy; this module imports no JAX.
+on ``device``, or DTensors on a mesh laid out by the logical-axis rules
+(``params_on_mesh``). Only the input is numpy; this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -44,3 +45,19 @@ def cache_from_numpy(tree: Dict[str, Any],
     """JAX cache tree (numpy leaves) -> port cache: KV leaves in ``dtype``,
     the integer bookkeeping leaves (pos, index, pages) as int32."""
     return _tree(tree, torch.device(device), dtype)
+
+
+def params_on_mesh(tree: Dict[str, Any], specs: Dict[str, Any], mesh,
+                   dtype: torch.dtype = torch.float32, rules=None,
+                   fsdp_axes=()) -> Dict[str, Any]:
+    """JAX parameter tree (numpy leaves, the same on every rank) -> DTensors
+    on ``mesh``, each laid out by ``param_shardings`` of its ``ParamSpec``
+    (each rank keeps its block; no communication)."""
+    from repro_torch.distributed.sharding import (DEFAULT_RULES,
+                                                  distribute_tree,
+                                                  param_shardings)
+
+    shardings = param_shardings(specs, mesh, rules or DEFAULT_RULES,
+                                fsdp_axes)
+    return distribute_tree(params_from_numpy(tree, "cpu", dtype), shardings,
+                           mesh)

@@ -24,6 +24,10 @@ The cache keeps the JAX leaf names: ``self/{k,v}`` ``(L, B, T, K, hd)``,
 ``loss`` trains as the JAX package does: every encoder layer and every
 decoder layer under ``sharding.remat_policy``, the chunked cross entropy
 over the tied embedding with no mask.
+
+On a ``mesh`` the model lays out its activations at the JAX package's
+sites (the encoder input and the decoder's embedded tokens by batch), as
+``DecoderLM`` does, and takes the plain attention versions.
 """
 from __future__ import annotations
 
@@ -32,15 +36,18 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from repro_torch.config import ModelConfig, ShardingConfig
+from repro_torch.config import ModelConfig, ShapeConfig, ShardingConfig
+from repro_torch.distributed.sharding import logical_constraint, new_zeros
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (apply_rope, embed, layer_norm,
                                        pad_vocab, rope_freqs, unembed)
 from repro_torch.models.mlp import mlp_forward, mlp_specs
-from repro_torch.models.spec import ParamSpec, init_tree
+from repro_torch.models.spec import ParamSpec, init_tree, shape_tree
 from repro_torch.models.transformer import (ATTN_IMPLS, DTYPES, _layer,
-                                            _remat, check_trainable,
-                                            chunked_ce, resolve_device)
+                                            _remat, _write_rows, attend,
+                                            check_trainable, split_heads,
+                                            chunked_ce, mesh_impls, on_mesh,
+                                            resolve_device)
 
 #: the query position of a cross-attention decode read: past every frame
 CROSS_POS_Q = 10 ** 9
@@ -75,7 +82,7 @@ class EncDecLM(nn.Module):
     def __init__(self, cfg: ModelConfig, attn_impl: str = "auto",
                  param_dtype: str = "", decode_impl: str = "auto",
                  device: Union[str, torch.device] = "cuda",
-                 sharding: ShardingConfig = ShardingConfig()):
+                 sharding: ShardingConfig = ShardingConfig(), mesh=None):
         super().__init__()
         if cfg.family != "encdec":
             raise ValueError(f"EncDecLM serves encdec, not {cfg.family!r}")
@@ -83,12 +90,14 @@ class EncDecLM(nn.Module):
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS} "
                              f"(the JAX 'pallas' is 'cuda' here)")
         self.cfg = cfg
+        self.mesh = mesh
         self.attn_impl = attn_impl
-        self.decode_impl = decode_impl
+        self.decode_impl = mesh_impls(mesh, attn_impl, decode_impl)
         self.sharding = sharding  # only remat_policy is read
         self.v_pad = pad_vocab(cfg.vocab_size)
         self.dtype = DTYPES[param_dtype or cfg.dtype]
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device_type)
         self._f32_table: Optional[Tuple[tuple, torch.Tensor]] = None
 
     # ------------------------------------------------------------------
@@ -129,15 +138,49 @@ class EncDecLM(nn.Module):
         """Random parameters from ``seed`` on this model's device."""
         return init_tree(self.specs(), seed, self.dtype, self.device)
 
+    def param_shapes(self) -> dict:
+        """The parameter tree as meta tensors (the dry-run's arguments)."""
+        return shape_tree(self.specs(), self.dtype)
+
+    def input_specs(self, shape: ShapeConfig) -> Tuple[dict, dict]:
+        """(meta-tensor tree, logical-axes tree) of a shape cell's batch:
+        frames and tokens (and labels) in train and prefill, one token and
+        its position in decode."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        meta = lambda shp, dt=torch.int32: torch.empty(shp, dtype=dt,
+                                                       device="meta")
+        if shape.kind in ("train", "prefill"):
+            specs = {"frames": meta((b, cfg.encoder_seq, cfg.frontend_dim),
+                                    torch.float32),
+                     "tokens": meta((b, s))}
+            axes = {"frames": ("batch", None, "frontend"),
+                    "tokens": ("batch", "seq")}
+            if shape.kind == "train":
+                specs["labels"] = meta((b, s))
+                axes["labels"] = ("batch", "seq")
+        else:
+            specs = {"tokens": meta((b, 1)), "positions": meta((b,))}
+            axes = {"tokens": ("batch", "seq"), "positions": ("batch",)}
+        return specs, axes
+
+    def cache_specs(self, batch: int, capacity: int) -> dict:
+        """The decode cache as meta tensors."""
+        return self.init_cache(batch, capacity, device="meta")
+
+    def _constrain(self, x, axes):
+        return logical_constraint(x, axes, self.mesh)
+
     def cache_axes(self, batch: int, capacity: int) -> dict:
         kv = ("layers", "batch", "seq", "kv_heads", None)
         return {"self": {"k": kv, "v": kv}, "cross": {"k": kv, "v": kv},
                 "cross_pos": ("batch", "seq"), "pos": ("batch", "seq"),
                 "index": ("batch",)}
 
-    def init_cache(self, batch: int, capacity: int) -> dict:
-        """Zero KV (model dtype), ``pos`` -1, ``cross_pos`` 0..F-1."""
-        cfg, dev = self.cfg, self.device
+    def init_cache(self, batch: int, capacity: int, device=None) -> dict:
+        """Zero KV (model dtype), ``pos`` -1, ``cross_pos`` 0..F-1; on this
+        model's device unless ``device`` says otherwise."""
+        cfg, dev = self.cfg, device or self.device
         k, hd = cfg.num_kv_heads, cfg.resolved_head_dim
         dl, se = cfg.num_layers, cfg.encoder_seq
         kv = lambda t: {n: torch.zeros((dl, batch, t, k, hd),
@@ -165,13 +208,12 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         b, sq, _ = xq.shape
         h_, k_, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        q = torch.matmul(xq, lp["wq"]).reshape(b, sq, h_, hd)
+        q = split_heads(self.mesh, torch.matmul(xq, lp["wq"]), h_, hd)
         if mode == "cross_cached":
             k, v = lcache["k"][layer], lcache["v"][layer]
         else:
-            skv = xkv.shape[1]
-            k = torch.matmul(xkv, lp["wk"]).reshape(b, skv, k_, hd)
-            v = torch.matmul(xkv, lp["wv"]).reshape(b, skv, k_, hd)
+            k = split_heads(self.mesh, torch.matmul(xkv, lp["wk"]), k_, hd)
+            v = split_heads(self.mesh, torch.matmul(xkv, lp["wv"]), k_, hd)
         if causal and mode != "cross_cached":  # RoPE on decoder self-attn
             cos, sin = rope_freqs(pos_q, hd, cfg.rope_theta)
             q = apply_rope(q, cos, sin)
@@ -179,26 +221,24 @@ class EncDecLM(nn.Module):
         new_kv = None
         if mode == "decode":
             kc, vc = lcache["k"], lcache["v"]
-            bi = torch.arange(b, device=xq.device)
-            il = idx.long()
-            kc[layer, bi, il] = k[:, 0].to(kc.dtype)
-            vc[layer, bi, il] = v[:, 0].to(vc.dtype)
-            out = attn_mod.decode_attention(q, kc[layer], vc[layer],
-                                            pos_q[:, 0], pos_kv,
-                                            impl=self.decode_impl)
+            _write_rows(kc, layer, idx, k[:, 0])
+            _write_rows(vc, layer, idx, v[:, 0])
+            out = attend(self.mesh, attn_mod.decode_attention, q, kc[layer],
+                         vc[layer], pos_q[:, 0], pos_kv,
+                         impl=self.decode_impl)
         elif mode == "cross_cached":
-            out = attn_mod.decode_attention(
-                q, k, v, torch.full((b,), CROSS_POS_Q, dtype=torch.int32,
+            out = attend(self.mesh, attn_mod.decode_attention, q, k, v,
+                         torch.full((b,), CROSS_POS_Q, dtype=torch.int32,
                                     device=xq.device),
-                pos_kv, impl=self.decode_impl)
+                         pos_kv, impl=self.decode_impl)
         else:
             impl = self.attn_impl
             if sq != k.shape[1] and impl in ("cuda", "torch"):
                 # cross-attention prefill: the self-attention kernel and
                 # its plain version take Sq == Skv only
                 impl = "auto"
-            out = attn_mod.attention(q, k, v, pos_q, pos_kv, causal=causal,
-                                     impl=impl)
+            out = attend(self.mesh, attn_mod.attention, q, k, v, pos_q,
+                         pos_kv, causal=causal, impl=impl)
             if mode == "prefill":
                 new_kv = (k, v)
         o = torch.matmul(out.reshape(b, sq, h_ * hd), lp["wo"])
@@ -220,6 +260,7 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         x = torch.matmul(frames.to(self.dtype), params["proj_in"])
         x = x + params["enc_pos"][None].to(self.dtype)
+        x = self._constrain(x, ("batch", "seq", "embed"))
         b, s, _ = x.shape
         pos = torch.arange(s, dtype=torch.int32, device=x.device)[
             None].expand(b, s)
@@ -229,7 +270,11 @@ class EncDecLM(nn.Module):
             o, _ = self._mha(lp["attn"], h, h, pos, pos, causal=False)
             x = x + o
             h = _ln(x, lp["ln2"], cfg.norm_eps)
-            return x + mlp_forward(lp["mlp"], h, cfg.activation).to(x.dtype)
+            x = x + mlp_forward(lp["mlp"], h, cfg.activation).to(x.dtype)
+            # the residual keeps its layout from layer to layer, as the
+            # JAX package's scan carry does (else a partial sum over
+            # "model" would reach the next layer and the cross cache)
+            return self._constrain(x, ("batch", "seq", "embed"))
 
         layer = self._remat_layer(layer, mode)
         for l in range(cfg.encoder_layers):
@@ -275,7 +320,8 @@ class EncDecLM(nn.Module):
             x = x + o
             h = _ln(x, lp["ln2"], cfg.norm_eps)
             x = x + mlp_forward(lp["mlp"], h, cfg.activation).to(x.dtype)
-            return x, kv_self, kv_cross
+            return (self._constrain(x, ("batch", "seq", "embed")), kv_self,
+                    kv_cross)
 
         layer = self._remat_layer(layer, mode)
         ys = {"self": ([], []), "cross": ([], [])}
@@ -296,6 +342,7 @@ class EncDecLM(nn.Module):
     # modes
     # ------------------------------------------------------------------
 
+    @on_mesh
     def loss(self, params, batch):
         """Mean cross entropy over every decoder position. batch: frames
         (B, F, frontend_dim), tokens, labels (B, S). Returns (ce, {"ce",
@@ -303,10 +350,18 @@ class EncDecLM(nn.Module):
         check_trainable(self.attn_impl)
         enc = self.encode(params, batch["frames"], "train")
         x = embed(batch["tokens"], params["embed"]).to(self.dtype)
+        x = self._constrain(x, ("batch", "seq", "embed"))
         x, _ = self._decode_stack(params, x, enc, "train")
         labels = batch["labels"]
-        ce = chunked_ce(x, params["embed"][:self.cfg.vocab_size].float(),
-                        labels, torch.ones_like(labels, dtype=torch.float32))
+        ones = torch.ones_like(labels, dtype=torch.float32)
+        if self.mesh is None:
+            ce = chunked_ce(x, params["embed"][:self.cfg.vocab_size].float(),
+                            labels, ones)
+        else:
+            ce = chunked_ce(x, params["embed"].float(), labels, ones,
+                            self.cfg.vocab_size,
+                            lambda lg: self._constrain(
+                                lg, ("batch", "seq", "vocab")))
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                                  device=x.device)}
 
@@ -314,8 +369,8 @@ class EncDecLM(nn.Module):
         """The tied embedding sliced to the true vocab, in float32 (a
         low-precision table is upcast once and kept, keyed by storage)."""
         table = params["embed"][:self.cfg.vocab_size]
-        if table.dtype == torch.float32:
-            return table
+        if table.dtype == torch.float32 or self.mesh is not None:
+            return table.float()
         key = (table.data_ptr(), tuple(table.shape), table.dtype, table.device)
         if self._f32_table is None or self._f32_table[0] != key:
             self._f32_table = (key, table.float())
@@ -324,6 +379,7 @@ class EncDecLM(nn.Module):
     def _logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
         return unembed(hidden.float(), self.unembed_table_f32(params))
 
+    @on_mesh
     def forward(self, params, batch, mode="full", cache=None):
         """Decoder hidden states over ``batch`` (tokens, frames), in the
         uniform API's (hidden, aux, caches, prefix) form."""
@@ -332,6 +388,7 @@ class EncDecLM(nn.Module):
         x, _ = self._decode_stack(params, x, enc, "full")
         return x, torch.zeros((), dtype=torch.float32, device=x.device), {}, 0
 
+    @on_mesh
     def prefill(self, params, batch, capacity: int):
         """Encode ``batch["frames"]`` and run the decoder prompt; return
         (last-token logits (B, V), cache). ``batch["lengths"]`` (B,) gives
@@ -355,7 +412,7 @@ class EncDecLM(nn.Module):
         def fit(kv):  # (L, B, S, K, hd) -> (L, B, capacity, K, hd)
             if s >= capacity:
                 return kv[:, :, s - capacity:].contiguous()
-            out = kv.new_zeros(kv.shape[:2] + (capacity,) + kv.shape[3:])
+            out = new_zeros(kv, kv.shape[:2] + (capacity,) + kv.shape[3:])
             out[:, :, :s] = kv
             return out
 
@@ -374,6 +431,7 @@ class EncDecLM(nn.Module):
         }
         return logits, cache
 
+    @on_mesh
     def decode_step(self, params, cache, batch, ctx=None):
         """One token. batch: tokens (B, 1), positions (B,). Returns
         (logits (B, V), cache), the cache updated in place. ``ctx`` (a
@@ -381,8 +439,8 @@ class EncDecLM(nn.Module):
         the serving engine keeps full-width attention for this family."""
         del ctx
         idx = cache["index"].clone()  # (B,) this token's write index
-        bi = torch.arange(idx.shape[0], device=idx.device)
-        cache["pos"][bi, idx.long()] = batch["positions"].to(torch.int32)
+        _write_rows(cache["pos"], None, idx,
+                    batch["positions"].to(torch.int32))
         cap = cache["pos"].shape[1]
         cache["index"] = (idx + 1) % cap
         x = embed(batch["tokens"], params["embed"]).to(self.dtype)

@@ -94,7 +94,8 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     v = table.shape[0]
     t = tokens.long()
     ok = (t >= -v) & (t < v)
-    out = table[torch.where(t < 0, t + v, t).clamp(0, v - 1)]
+    rows = torch.where(t < 0, t + v, t).clamp(0, v - 1)
+    out = torch.nn.functional.embedding(rows, table)
     return torch.where(ok[..., None], out, float("nan"))
 
 

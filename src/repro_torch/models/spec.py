@@ -88,6 +88,13 @@ def init_tree(specs: Dict, seed: Union[int, torch.Generator],
     return out
 
 
+def shape_tree(specs: Dict, dtype: torch.dtype) -> Dict:
+    """The spec tree as ``meta`` tensors (shape and dtype, no storage): the
+    counterpart of the JAX package's ``ShapeDtypeStruct`` tree."""
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), specs)
+
+
 def count_tree(specs: Dict) -> int:
     total = 0
     for _, s in iter_specs(specs):

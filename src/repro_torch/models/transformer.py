@@ -32,6 +32,7 @@ families' decode, which overwrite each layer's conv window and state.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -40,7 +41,11 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.config import ModelConfig, ShardingConfig
+from repro_torch.config import ModelConfig, ShapeConfig, ShardingConfig
+from repro_torch.distributed.sharding import (PartitionSpec, local_block,
+                                              logical_constraint,
+                                              logical_pspec, mesh_axis_sizes,
+                                              new_zeros, to_placements)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -48,7 +53,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_rope, embed, pad_vocab,
                                        rms_norm, rope_freqs, unembed)
 from repro_torch.models.mlp import mlp_forward, mlp_specs
-from repro_torch.models.spec import ParamSpec, init_tree
+from repro_torch.models.spec import ParamSpec, init_tree, shape_tree
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -70,6 +75,116 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
                            f"is available; pass device='cpu' to run on the "
                            f"CPU")
     return dev
+
+
+def mesh_impls(mesh, attn_impl: str, decode_impl: str) -> str:
+    """The decode impl a model takes on ``mesh``. The hand kernels take no
+    DTensor: under a mesh "auto" runs the plain versions, and "cuda" is
+    refused (the JAX package never runs Pallas under a mesh either)."""
+    if mesh is None:
+        return decode_impl
+    if "cuda" in (attn_impl, decode_impl):
+        raise ValueError(
+            "the CUDA attention kernels take no DTensor: a model on a mesh "
+            "runs attn_impl/decode_impl 'auto' (the plain versions); the "
+            "kernels under a mesh are not ported yet")
+    return "torch" if decode_impl == "auto" else decode_impl
+
+
+def mesh_context(mesh):
+    """The context a model's step runs in: on a mesh, plain tensors made
+    inside the step (positions, masks, rope tables, zeros) count as
+    replicated DTensors (``implicit_replication``); else nothing."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    if DTensor._op_dispatcher._allow_implicit_replication:
+        # already inside one: the context resets the flag when it exits
+        return contextlib.nullcontext()
+    return implicit_replication()
+
+
+def on_mesh(fn):
+    """Run method ``fn`` under its model's :func:`mesh_context`."""
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        with mesh_context(self.mesh):
+            return fn(self, *args, **kwargs)
+    return run
+
+
+def split_heads(mesh, t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n*hd) -> (B, S, n, hd). On a mesh the flat projection is first
+    laid out so that the split is legal: its last dim over "model" only if
+    the head count divides it (the rules may shard n*hd where n does not
+    divide, e.g. 8 KV heads on 16 ranks)."""
+    b, s = t.shape[:2]
+    if mesh is not None:
+        ps = logical_pspec(("batch", None, "heads", None), (b, s, n, hd),
+                           mesh)
+        want = to_placements(PartitionSpec(*ps[:3]), mesh)
+        if tuple(t.placements) != want and any(
+                pl.is_shard(2) for pl in t.placements):
+            t = t.redistribute(mesh, tuple(
+                want[i] if pl.is_shard(2) else pl
+                for i, pl in enumerate(t.placements)))
+    return t.reshape(b, s, n, hd)
+
+
+def attend(mesh, fn, q, k, v, pos_q, pos_kv, **kw):
+    """``fn(q, k, v, pos_q, pos_kv, **kw)``, an attention function, on a
+    mesh: each rank runs ``fn`` on its block, the batch over the batch axes
+    and the query heads over "model" where the rules shard them. Attention
+    mixes neither batch rows nor KV head groups, so a rank needs only the
+    KV heads its query heads read: all of them sharded alike when the KV
+    head count divides "model" too, else the KV heads replicated and each
+    rank slicing out its own (their gradient then a partial sum over
+    "model"). The output is that block of the global result; DTensor never
+    sees the attention's products. Without a mesh, ``fn`` as it is."""
+    if mesh is None:
+        return fn(q, k, v, pos_q, pos_kv, **kw)
+    from torch.distributed.tensor import DTensor, Partial
+
+    h, kh = q.shape[2], k.shape[2]
+    qs = logical_pspec(("batch", None, "heads", None), tuple(q.shape), mesh)
+    ks = logical_pspec(("batch", None, "kv_heads", None), tuple(k.shape),
+                       mesh)
+    heads, kv_slice = qs[2], None
+    if heads is not None and ks[2] != heads:
+        n = mesh_axis_sizes(mesh)[heads]
+        per, g = h // n, h // kh
+        if per % g == 0 or g % per == 0:  # no rank's heads straddle groups
+            r = mesh.get_local_rank(heads)
+            kv_slice = slice(r * per // g, ((r + 1) * per - 1) // g + 1)
+        else:
+            heads = None
+    q_spec = PartitionSpec(qs[0], None, heads, None)
+    kv_spec = q_spec if kv_slice is None else PartitionSpec(qs[0], None,
+                                                            None, None)
+    row = PartitionSpec(qs[0], None)
+
+    def local(x, ps, grad=None):
+        if x is None:
+            return None
+        return local_block(x, mesh, to_placements(
+            PartitionSpec(*ps[:x.dim()]), mesh), grad)
+
+    if kv_slice is None:
+        kl, vl = local(k, kv_spec), local(v, kv_spec)
+    else:
+        part = tuple(Partial() if n == heads else p for n, p in zip(
+            mesh.mesh_dim_names, to_placements(kv_spec, mesh)))
+        kl = local(k, kv_spec, part)[:, :, kv_slice]
+        vl = local(v, kv_spec, part)[:, :, kv_slice]
+    out = fn(local(q, q_spec), kl, vl, local(pos_q, row),
+             local(pos_kv, row), **kw)
+    # the global shape and stride follow from the (even) contiguous block:
+    # an attention output that is a transposed view would otherwise carry
+    # a global stride its local block lacks, and a later view would fail
+    return DTensor.from_local(out.contiguous(), mesh,
+                              to_placements(q_spec, mesh), run_check=False)
 
 
 #: the products whose outputs the "dots" policy keeps (``dots_saveable``)
@@ -112,20 +227,33 @@ def check_trainable(attn_impl: str) -> None:
             f"gradient); build the model with attn_impl='auto' to train")
 
 
-def _ce_chunk(h, table, labels, mask):
+def _ce_chunk(h, table, labels, mask, true_vocab=None, constrain=None):
     logits = unembed(h.float(), table)
+    if true_vocab is None:  # the table holds the true vocab
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        # the padded table (its vocab dim sharded on a mesh): the tail
+        # masked, as the JAX package's ``unembed``, and the gold logit
+        # picked by a masked sum over the vocab (no gather across shards)
+        cols = torch.arange(table.shape[0], device=h.device)
+        logits = constrain(torch.where(cols < true_vocab, logits, -1e30))
+        gold = torch.where(cols == labels.long()[..., None], logits,
+                           0.0).sum(-1)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
 def chunked_ce(hidden: torch.Tensor, table: torch.Tensor,
-               labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+               labels: torch.Tensor, mask: torch.Tensor,
+               true_vocab: Optional[int] = None, constrain=None
+               ) -> torch.Tensor:
     """Masked mean cross entropy over (B, S) positions, the logits made and
     kept one sequence chunk at a time (the JAX package's ``_chunked_ce``):
     the first of 8, 4, 2, 1 chunks that divides S and leaves >= 128 rows,
     each chunk recomputed in the backward pass. ``table``: (V, D) float32,
-    the true vocab; ``mask``: float32."""
+    the true vocab, or the padded table with ``true_vocab`` rows real (its
+    tail masked; on a mesh, so that the vocab stays sharded); ``mask``:
+    float32; ``constrain`` lays out each chunk's logits."""
     b, s, _ = hidden.shape
     nc = next((c for c in (8, 4, 2, 1) if s % c == 0 and s // c >= 128), 1)
     c = s // nc
@@ -134,7 +262,8 @@ def chunked_ce(hidden: torch.Tensor, table: torch.Tensor,
     for j in range(nc):
         sl = slice(j * c, (j + 1) * c)
         t, n = checkpoint(_ce_chunk, hidden[:, sl], table, labels[:, sl],
-                          mask[:, sl], use_reentrant=False)
+                          mask[:, sl], true_vocab, constrain,
+                          use_reentrant=False)
         tot, cnt = tot + t, cnt + n
     return tot / torch.clamp(cnt, min=1.0)
 
@@ -182,19 +311,51 @@ def _ring_roll(x: torch.Tensor, shift: torch.Tensor, axis: int
     return torch.gather(x, axis, idx.expand(x.shape))
 
 
+def _write_rows(leaf: torch.Tensor, layer: Optional[int], idx: torch.Tensor,
+                rows: torch.Tensor) -> None:
+    """``leaf[layer, b, idx[b]] = rows[b]`` for every batch row b, in place
+    (``leaf[b, idx[b]]`` when ``layer`` is None). A DTensor leaf (a cache on
+    a mesh) takes a select-and-copy of the layer instead of the scatter,
+    which DTensor cannot place on a sharded batch dim."""
+    rows = rows.to(leaf.dtype)
+    if not hasattr(leaf, "placements"):
+        bi = torch.arange(idx.shape[0], device=idx.device)
+        if layer is None:
+            leaf[bi, idx.long()] = rows
+        else:
+            leaf[layer, bi, idx.long()] = rows
+        return
+    cur = leaf if layer is None else leaf[layer]
+    hit = (torch.arange(cur.shape[1], device=idx.device)[None]
+           == idx.long()[:, None])  # (B, T)
+    hit = hit.reshape(hit.shape + (1,) * (cur.dim() - 2))
+    rows = rows.reshape(rows.shape[:1] + (1,) + rows.shape[1:])
+    cur.copy_(torch.where(hit, rows, cur))
+
+
 def _layer(tree: Dict[str, Any], l: int) -> Dict[str, Any]:
     return {k: (_layer(v, l) if isinstance(v, dict) else v[l])
             for k, v in tree.items()}
 
 
 class DecoderLM(nn.Module):
-    """Decoder LM over an explicit parameter dict (see the module doc)."""
+    """Decoder LM over an explicit parameter dict (see the module doc).
+
+    On a ``mesh`` (a ``DeviceMesh`` with dims named "data", "model" and
+    optionally "pod"), parameters and batch leaves are DTensors and the
+    model lays out its activations by logical axes at the JAX package's
+    sites (``_constrain``): q by heads, the residual stream by batch and
+    ``seq`` (``seq_sp``, sharded over "model", under
+    ``sharding.sequence_parallel``), the loss's logits by vocab. Plain
+    tensors made inside a step count as replicated (``mesh_context``). The
+    MoE layers take their expert-parallel paths (``moe_forward``). The
+    model's device is the mesh's device type."""
 
     def __init__(self, cfg: ModelConfig, attn_impl: str = "auto",
                  param_dtype: str = "", decode_impl: str = "auto",
                  device: Union[str, torch.device] = "cuda",
                  moe_impl: str = "auto",
-                 sharding: ShardingConfig = ShardingConfig()):
+                 sharding: ShardingConfig = ShardingConfig(), mesh=None):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(f"DecoderLM serves {', '.join(FAMILIES)}, not "
@@ -206,14 +367,17 @@ class DecoderLM(nn.Module):
             raise ValueError(f"moe_impl {moe_impl!r} not in "
                              f"{moe_mod.MOE_IMPLS}")
         self.cfg = cfg
+        self.mesh = mesh
         self.attn_impl = attn_impl
         self.moe_impl = moe_impl
-        self.decode_impl = decode_impl
-        # only ``remat_policy`` is read: the mesh knobs have no counterpart
+        self.decode_impl = mesh_impls(mesh, attn_impl, decode_impl)
+        # ``remat_policy`` and, on a mesh, ``sequence_parallel`` are read
         self.sharding = sharding
+        self._seq = "seq_sp" if sharding.sequence_parallel else "seq"
         self.v_pad = pad_vocab(cfg.vocab_size)
         self.dtype = DTYPES[param_dtype or cfg.dtype]
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device_type)
         # f32 copy of the unembedding table, made once per table: the
         # logits are an f32 product on every step (as in the JAX package)
         self._f32_table: Optional[Tuple[tuple, torch.Tensor]] = None
@@ -275,6 +439,37 @@ class DecoderLM(nn.Module):
         """Random parameters from ``seed`` on this model's device."""
         return init_tree(self.specs(), seed, self.dtype, self.device)
 
+    def param_shapes(self) -> dict:
+        """The parameter tree as meta tensors (the dry-run's arguments)."""
+        return shape_tree(self.specs(), self.dtype)
+
+    def input_specs(self, shape: ShapeConfig) -> Tuple[dict, dict]:
+        """(meta-tensor tree, logical-axes tree) of a shape cell's batch:
+        the JAX package's ``input_specs`` (the dry-run's data contract)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        meta = lambda shp, dt=torch.int32: torch.empty(shp, dtype=dt,
+                                                       device="meta")
+        if shape.kind in ("train", "prefill"):
+            specs = {"tokens": meta((b, s))}
+            axes = {"tokens": ("batch", "seq")}
+            if shape.kind == "train":
+                specs["labels"] = meta((b, s))
+                axes["labels"] = ("batch", "seq")
+            if cfg.frontend == "vision_stub":
+                specs["patches"] = meta((b, cfg.num_patches,
+                                         cfg.frontend_dim), torch.float32)
+                axes["patches"] = ("batch", None, "frontend")
+        else:  # decode: one token against a seq_len-deep cache
+            specs = {"tokens": meta((b, 1)), "positions": meta((b,))}
+            axes = {"tokens": ("batch", "seq"), "positions": ("batch",)}
+        return specs, axes
+
+    def cache_specs(self, batch: int, capacity: int) -> dict:
+        """The decode cache as meta tensors: ``pos``/``index`` int32,
+        recurrent ``h`` float32, the rest in the model dtype."""
+        return self.init_cache(batch, capacity, device="meta")
+
     # ------------------------------------------------------------------
     # cache
     # ------------------------------------------------------------------
@@ -302,11 +497,11 @@ class DecoderLM(nn.Module):
             out["extra"] = rg(("layers",))
         return out
 
-    def init_cache(self, batch: int, capacity: int) -> dict:
+    def init_cache(self, batch: int, capacity: int, device=None) -> dict:
         """Zero caches (``pos`` -1); recurrent states ``h`` in float32, KV
         and conv windows in the model dtype, as the JAX package keeps
-        them."""
-        cfg, dev = self.cfg, self.device
+        them. On this model's device unless ``device`` says otherwise."""
+        cfg, dev = self.cfg, device or self.device
         z = lambda shape, dt=None: torch.zeros(shape, dtype=dt or self.dtype,
                                                device=dev)
         bk = lambda w: {"pos": torch.full((batch, w), -1, dtype=torch.int32,
@@ -352,14 +547,15 @@ class DecoderLM(nn.Module):
         b, s, _ = x.shape
         h_, k_, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         hh = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q = torch.matmul(hh, lp["wq"]).reshape(b, s, h_, hd)
-        k = torch.matmul(hh, lp["wk"]).reshape(b, s, k_, hd)
-        v = torch.matmul(hh, lp["wv"]).reshape(b, s, k_, hd)
+        q = split_heads(self.mesh, torch.matmul(hh, lp["wq"]), h_, hd)
+        k = split_heads(self.mesh, torch.matmul(hh, lp["wk"]), k_, hd)
+        v = split_heads(self.mesh, torch.matmul(hh, lp["wv"]), k_, hd)
         if cfg.qk_norm:
             q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
             k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+        q = self._constrain(q, ("batch", "seq", "heads", None))
 
         new_kv = None
         if mode == "decode" and pages is not None:
@@ -378,23 +574,24 @@ class DecoderLM(nn.Module):
             cap = pos_kv.shape[1]
             ctx_eff = ctx if (ctx is not None and ctx < cap) else cap
             npg = -(-ctx_eff // page)
+            if self.mesh is not None:
+                raise NotImplementedError("paged decode runs on one device, "
+                                          "not on a mesh")
             out = attn_mod.decode_attention_paged(
                 q, kc[layer], vc[layer], pages[:, :npg], pos_q[:, 0],
                 pos_kv[:, :ctx_eff], window=window, impl=self.decode_impl)
         elif mode == "decode":
             kc, vc = lcache["k"], lcache["v"]
-            bi = torch.arange(b, device=x.device)
-            il = idx.long()
-            kc[layer, bi, il] = k[:, 0].to(kc.dtype)
-            vc[layer, bi, il] = v[:, 0].to(vc.dtype)
+            _write_rows(kc, layer, idx, k[:, 0])
+            _write_rows(vc, layer, idx, v[:, 0])
             kr, vr, pr = kc[layer], vc[layer], pos_kv
             if ctx is not None and ctx < kr.shape[1]:
                 # context hint: attend only the leading ctx entries (views,
                 # no copy; the kernel takes the strides)
                 kr, vr, pr = kr[:, :ctx], vr[:, :ctx], pos_kv[:, :ctx]
-            out = attn_mod.decode_attention(q, kr, vr, pos_q[:, 0], pr,
-                                            window=window,
-                                            impl=self.decode_impl)
+            out = attend(self.mesh, attn_mod.decode_attention, q, kr, vr,
+                         pos_q[:, 0], pr, window=window,
+                         impl=self.decode_impl)
         elif mode == "chunk":
             # S tokens against the cache (suffix prefill): their KV rows land
             # at consecutive indices after each row's write index (linear
@@ -414,8 +611,8 @@ class DecoderLM(nn.Module):
                 kr, vr, pr = kr[:, :ctx], vr[:, :ctx], pos_kv[:, :ctx]
             impl = (self.attn_impl if self.attn_impl in ("dense", "flash")
                     else "auto")
-            out = attn_mod.attention(q, kr, vr, pos_q, pr, causal=True,
-                                     window=window, impl=impl)
+            out = attend(self.mesh, attn_mod.attention, q, kr, vr, pos_q, pr,
+                         causal=True, window=window, impl=impl)
         elif mode == "ringchunk":
             # S tokens against a RING-BUFFER window cache (the hybrid
             # family's suffix prefill): each token attends the old ring
@@ -433,8 +630,8 @@ class DecoderLM(nn.Module):
             # positions: the position-aware choice stands in for them
             impl = (self.attn_impl if self.attn_impl in ("dense", "flash")
                     else "auto")
-            out = attn_mod.attention(q, kcat, vcat, pos_q, pcat, causal=True,
-                                     window=window, impl=impl)
+            out = attend(self.mesh, attn_mod.attention, q, kcat, vcat, pos_q,
+                         pcat, causal=True, window=window, impl=impl)
             if s < w:
                 bi = torch.arange(b, device=x.device)[:, None]
                 widx = (idx.long()[:, None]
@@ -446,19 +643,25 @@ class DecoderLM(nn.Module):
                 kc[layer] = _ring_roll(k[:, s - w:], r0, 1).to(kc.dtype)
                 vc[layer] = _ring_roll(v[:, s - w:], r0, 1).to(vc.dtype)
         else:
-            out = attn_mod.attention(q, k, v, pos_q, pos_q, causal=True,
-                                     window=window, impl=self.attn_impl)
+            out = attend(self.mesh, attn_mod.attention, q, k, v, pos_q, pos_q,
+                         causal=True, window=window, impl=self.attn_impl)
             if mode == "prefill":
                 new_kv = (k, v)
         out = out.reshape(b, s, h_ * hd)
         x = x + torch.matmul(out, lp["wo"]).to(x.dtype)
+        x = self._constrain(x, ("batch", self._seq, "embed"))
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         aux = None
         if moe:
-            y, aux = moe_mod.moe_forward(lp["moe"], h2, cfg, self.moe_impl)
+            y, aux = moe_mod.moe_forward(lp["moe"], h2, cfg, self.moe_impl,
+                                         mesh=self.mesh)
         else:
             y = mlp_forward(lp["mlp"], h2, cfg.activation)
-        return x + y.to(x.dtype), new_kv, aux
+        x = x + y.to(x.dtype)
+        return self._constrain(x, ("batch", self._seq, "embed")), new_kv, aux
+
+    def _constrain(self, x, axes):
+        return logical_constraint(x, axes, self.mesh)
 
     # ------------------------------------------------------------------
     # the stack
@@ -628,8 +831,9 @@ class DecoderLM(nn.Module):
                               params["proj_in"])
             x = torch.cat([px, x], dim=1)
             prefix = px.shape[1]
-        return x, prefix
+        return self._constrain(x, ("batch", self._seq, "embed")), prefix
 
+    @on_mesh
     def forward(self, params, batch, mode="prefill", cache=None, ctx=None,
                 idx=None):
         """Backbone -> (final hidden states (B, S_total, D), the MoE aux
@@ -648,6 +852,7 @@ class DecoderLM(nn.Module):
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         return x, aux, layer_caches, prefix
 
+    @on_mesh
     def loss(self, params, batch):
         """Mean cross entropy (+ the MoE aux loss times
         ``router_aux_coef``). batch: tokens, labels (B, S), optional
@@ -668,8 +873,14 @@ class DecoderLM(nn.Module):
         # stale, and it would carry an earlier step's graph
         table = params["embed"] if self.cfg.tie_embeddings \
             else params["unembed"]
-        ce = chunked_ce(hidden, table[:self.cfg.vocab_size].float(), labels,
-                        mask.float())
+        if self.mesh is None:
+            ce = chunked_ce(hidden, table[:self.cfg.vocab_size].float(),
+                            labels, mask.float())
+        else:
+            ce = chunked_ce(hidden, table.float(), labels, mask.float(),
+                            self.cfg.vocab_size,
+                            lambda lg: self._constrain(
+                                lg, ("batch", "seq", "vocab")))
         return ce + self.cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
     def unembed_table_f32(self, params) -> torch.Tensor:
@@ -677,8 +888,8 @@ class DecoderLM(nn.Module):
         low-precision table is upcast once and kept (keyed by storage)."""
         table = params["embed"] if self.cfg.tie_embeddings else params["unembed"]
         table = table[:self.cfg.vocab_size]
-        if table.dtype == torch.float32:
-            return table
+        if table.dtype == torch.float32 or self.mesh is not None:
+            return table.float()
         key = (table.data_ptr(), tuple(table.shape), table.dtype, table.device)
         if self._f32_table is None or self._f32_table[0] != key:
             self._f32_table = (key, table.float())
@@ -687,6 +898,7 @@ class DecoderLM(nn.Module):
     def _logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
         return unembed(hidden.float(), self.unembed_table_f32(params))
 
+    @on_mesh
     def prefill(self, params, batch, capacity: int):
         """Run the prompt, return (last-token logits (B, V), cache).
 
@@ -724,7 +936,7 @@ class DecoderLM(nn.Module):
             shape = list(kv.shape)
             shape[axis] = w
             out = torch.full(shape, -1, dtype=kv.dtype, device=dev) \
-                if kv.dtype == torch.int32 else kv.new_zeros(shape)
+                if kv.dtype == torch.int32 else new_zeros(kv, shape)
             out.narrow(axis, 0, s).copy_(kv)
             return out
 
@@ -746,6 +958,7 @@ class DecoderLM(nn.Module):
                                         dtype=torch.int32, device=dev)
         return cache
 
+    @on_mesh
     def decode_step(self, params, cache, batch, ctx=None):
         """One token. batch: tokens (B,1), positions (B,). Returns
         (logits (B, V), cache), the cache updated in place.
@@ -757,8 +970,8 @@ class DecoderLM(nn.Module):
         idx = None
         if "pos" in cache:
             idx = cache["index"].clone()  # (B,) this token's write index
-            bi = torch.arange(idx.shape[0], device=idx.device)
-            cache["pos"][bi, idx.long()] = batch["positions"].to(torch.int32)
+            _write_rows(cache["pos"], None, idx,
+                        batch["positions"].to(torch.int32))
             cap = cache["pos"].shape[1]
             cache["index"] = (idx + 1) % cap
         hidden, _, _, _ = self.forward(params, batch, "decode", cache, ctx,

@@ -63,6 +63,7 @@ import json
 import re
 import struct
 import time
+import weakref
 import zlib
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
@@ -406,6 +407,19 @@ def _slot_keys(seed: int, n: int) -> np.ndarray:
         0, 1 << 32, size=(n, 2), dtype=np.uint32)
 
 
+def _weak_hook(method: Callable) -> Callable:
+    """``method`` (a bound method) called through a weak reference to its
+    object: whatever holds the hook does not keep the object alive. A
+    call after the object is gone does nothing."""
+    ref = weakref.WeakMethod(method)
+
+    def hook(*args):
+        fn = ref()
+        if fn is not None:
+            fn(*args)
+    return hook
+
+
 class TierEngine:
     def __init__(self, model, params, serving: ServingConfig = ServingConfig(),
                  eos_id: int = 2, sample_temp: float = 0.0, seed: int = 0):
@@ -546,7 +560,9 @@ class TierEngine:
             # dropping a store reference and freeing its physical pages must
             # never diverge: EVERY store removal (LRU eviction, overwrite,
             # explicit pop) decrefs through this hook
-            self.prefix_store.lru.on_evict = self._on_prefix_evict
+            # through a weak reference: the store must not keep its engine
+            # (weights, caches) alive in a reference cycle
+            self.prefix_store.lru.on_evict = _weak_hook(self._on_prefix_evict)
         # a recurrent family's warm suffix and speculative commits replay in
         # one decode_chunk_recurrent pass (else token by token)
         self._warm_chunk_recurrent = (serving.chunked_recurrent_suffix

@@ -11,6 +11,12 @@ update and the norm walk each leaf in flat slices of ``CHUNK`` elements,
 so their float32 temporaries stay a few slices large. The arithmetic is
 elementwise, so slicing changes no result; only the norm's sums run in
 another order.
+
+On a mesh the leaves are DTensors (parameters, gradients and moments of
+one leaf share its placements): the update walks each rank's local shard,
+and the norm sums each leaf's local squares and all-reduces them over the
+mesh dims that shard it, so a sharded leaf counts each element once and a
+replicated leaf counts once, not once per rank.
 """
 from __future__ import annotations
 
@@ -41,6 +47,19 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
     return [tree]
 
 
+def tree_unflatten(like: Any, leaves: List[torch.Tensor]) -> Any:
+    """A tree shaped like ``like`` holding ``leaves`` in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(like)
+
+
 def tree_map(fn, tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
@@ -59,7 +78,8 @@ def lr_schedule(cfg: OptimizerConfig,
 
 def init_opt_state(params: Any, cfg: OptimizerConfig) -> OptState:
     dt = DTYPES[cfg.state_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=dt,
+                                       memory_format=torch.contiguous_format)
     dev = tree_leaves(params)[0].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     m=tree_map(zeros, params), v=tree_map(zeros, params))
@@ -72,10 +92,28 @@ def _slices(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return x.reshape(-1).split(CHUNK)
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (sharing its storage); a plain tensor."""
+    return x.to_local() if hasattr(x, "placements") else x
+
+
+def _squares(x: torch.Tensor) -> torch.Tensor:
+    """Sum of squares of a leaf, over its shards once on a mesh."""
+    sq = sum(torch.sum(torch.square(c.float())) for c in _slices(_local(x)))
+    if not hasattr(x, "placements"):
+        return sq
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if any(p.is_partial() for p in x.placements):
+        raise ValueError("global_norm takes sharded or replicated leaves, "
+                         "not partial sums")
+    parts = [Partial() if p.is_shard() else Replicate() for p in x.placements]
+    return DTensor.from_local(sq, x.device_mesh, parts,
+                              run_check=False).full_tensor()
+
+
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(sum(torch.sum(torch.square(c.float()))
-                              for c in _slices(x))
-                          for x in tree_leaves(tree)))
+    return torch.sqrt(sum(_squares(x) for x in tree_leaves(tree)))
 
 
 @torch.no_grad()
@@ -92,8 +130,15 @@ def adamw_update(params: Any, grads: Any, state: OptState,
     b1, b2 = cfg.beta1, cfg.beta2
     bc1 = 1.0 - b1 ** step.float()
     bc2 = 1.0 - b2 ** step.float()
-    for leaf in zip(tree_leaves(params), tree_leaves(grads),
-                    tree_leaves(state.m), tree_leaves(state.v)):
+    for p_full, g, m, v in zip(*(tree_leaves(t) for t in
+                                 (params, grads, state.m, state.v))):
+        p_ = p_full
+        if hasattr(m, "placements") and m.placements != p_full.placements:
+            # ZeRO: the moments are sharded finer than the parameter; the
+            # update runs on the moments' layout and is gathered back
+            p_ = p_full.redistribute(m.device_mesh, m.placements)
+            g = g.redistribute(m.device_mesh, m.placements)
+        leaf = tuple(map(_local, (p_, g, m, v)))
         for x in leaf[:1] + leaf[2:]:
             if not x.is_contiguous():
                 raise ValueError("adamw_update updates contiguous params "
@@ -109,5 +154,8 @@ def adamw_update(params: Any, grads: Any, state: OptState,
             p.copy_(p.float() - lr * delta)
             m.copy_(m_new)
             v.copy_(v_new)
+        if p_ is not p_full:
+            p_full.copy_(p_.redistribute(p_full.device_mesh,
+                                         p_full.placements))
     return params, OptState(step, state.m, state.v), {"grad_norm": gnorm,
                                                       "lr": lr}

@@ -1,7 +1,11 @@
 """Training loop: the train-step factory (gradient accumulation, remat by
 the model's policy, an in-place optimizer step) and the fault-tolerant
 Trainer (auto-resume, preemption save, data-skip on resume). Counterpart of
-``repro/training/train_loop.py`` on one device.
+``repro/training/train_loop.py``.
+
+On a mesh the leaves are DTensors and the same step runs over them: each
+gradient is laid out as its parameter (a partial sum is all-reduced, the
+data-parallel gradient reduction) before the update.
 """
 from __future__ import annotations
 
@@ -16,10 +20,12 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.config import TrainConfig
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import make_token_batch
+from repro_torch.distributed.sharding import batch_shardings, distribute
 from repro_torch.models import build_model
+from repro_torch.models.transformer import mesh_context
 from repro_torch.training.optimizer import (OptState, adamw_update,
                                             init_opt_state, tree_leaves,
-                                            tree_map)
+                                            tree_map, tree_unflatten)
 
 
 def loss_and_grads(model, params: Any, batch: Dict[str, torch.Tensor]
@@ -29,12 +35,47 @@ def loss_and_grads(model, params: Any, batch: Dict[str, torch.Tensor]
     no ``.grad`` state is left on them. A leaf the loss does not reach (a
     vlm's ``proj_in`` on a text batch) gets zeros, as under ``jax.grad``."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss, metrics = model.loss(live, batch)
-    leaves = tree_leaves(live)
-    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
-                                     materialize_grads=True))
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            tree_map(lambda _: next(grads), live))
+    # on a mesh the backward pass too (remat recomputes layers there)
+    with mesh_context(getattr(model, "mesh", None)):
+        loss, metrics = model.loss(live, batch)
+        leaves = tree_leaves(live)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    return (_full(loss), {k: _full(v) for k, v in metrics.items()},
+            tree_unflatten(live, [_like(g, p) for g, p in zip(grads,
+                                                               leaves)]))
+
+
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor's global value)."""
+    x = x.detach()
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient laid out as its parameter (a partial sum over
+    data-parallel ranks is all-reduced here); a plain one as it is."""
+    if hasattr(p, "placements") and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def microbatch(x: torch.Tensor, i: int, accum: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``accum``: rows [i*n, (i+1)*n) of the batch. A
+    batch DTensor sharded over its rows takes rows [i*n, (i+1)*n) of each
+    rank's shard instead (no rows move between ranks): other rows form
+    each microbatch, and the accumulated gradient and mean loss are the
+    same."""
+    if not hasattr(x, "placements") or not any(
+            p.is_shard(0) for p in x.placements):
+        n = x.shape[0] // accum
+        return x[i * n:(i + 1) * n]
+    from torch.distributed.tensor import DTensor
+
+    local = x.to_local()
+    n = local.shape[0] // accum
+    return DTensor.from_local(local[i * n:(i + 1) * n], x.device_mesh,
+                              x.placements, run_check=False)
 
 
 def make_train_step(model, opt_cfg, accum: int = 1) -> Callable:
@@ -50,15 +91,16 @@ def make_train_step(model, opt_cfg, accum: int = 1) -> Callable:
         if accum <= 1:
             loss, metrics, grads = loss_and_grads(model, params, batch)
         else:
-            n = next(iter(batch.values())).shape[0] // accum
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32,
+                memory_format=torch.contiguous_format), params)
             loss = 0.0
             for i in range(accum):
-                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                mb = {k: microbatch(v, i, accum) for k, v in batch.items()}
                 l, _, g = loss_and_grads(model, params, mb)
                 for acc, gi in zip(tree_leaves(grads), tree_leaves(g)):
-                    acc.add_(gi.float())
+                    with torch.no_grad():
+                        acc.add_(gi.float())
                 loss = loss + l
             grads = tree_map(lambda g: g / accum, grads)
             loss = loss / accum
@@ -71,7 +113,7 @@ def make_train_step(model, opt_cfg, accum: int = 1) -> Callable:
 
 
 class Trainer:
-    """Fault-tolerant single-device trainer.
+    """Fault-tolerant trainer.
 
     · auto-resumes from the latest checkpoint in ``cfg.checkpoint_dir``;
     · async-checkpoints every ``checkpoint_every`` steps;
@@ -82,15 +124,22 @@ class Trainer:
     ``params`` / ``opt_state`` set before ``train()`` are taken as they are
     (no init, no resume). The model runs on ``device`` (default ``cuda``,
     which raises without a card), or on the given model's device.
+
+    With a ``mesh`` (a ``DeviceMesh``, every rank of its process group
+    running the same trainer) the model is built on it, as in the JAX
+    package; the parameters and moments are replicated DTensors and each
+    batch is sharded over the batch axes ("pod", "data"). The checkpoint
+    holds full tensors, written by rank 0.
     """
 
-    def __init__(self, cfg: TrainConfig, model=None,
+    def __init__(self, cfg: TrainConfig, model=None, mesh=None,
                  device: Union[str, torch.device] = "cuda"):
         self.cfg = cfg
         mcfg = get_config(cfg.model)
         self.model = model or build_model(mcfg, sharding=cfg.sharding,
                                           param_dtype="float32",
-                                          device=device)
+                                          device=device, mesh=mesh)
+        self.mesh = mesh
         self.ckpt = Checkpointer(cfg.checkpoint_dir,
                                  keep=cfg.keep_checkpoints)
         self._step_fn = make_train_step(self.model, cfg.optimizer,
@@ -107,11 +156,26 @@ class Trainer:
         rng = np.random.default_rng((self.cfg.seed << 20) + step)
         b = make_token_batch(rng, self.cfg.batch_size, self.cfg.seq_len,
                              self.model.cfg.vocab_size)
-        return {k: torch.as_tensor(v, device=self.model.device)
-                for k, v in b.items()}
+        out = {k: torch.as_tensor(v, device=self.model.device)
+               for k, v in b.items()}
+        if self.mesh is None:
+            return out
+        axes = {k: ("batch",) + (None,) * (v.dim() - 1)
+                for k, v in out.items()}
+        placements = batch_shardings(axes, {k: v.shape
+                                            for k, v in out.items()},
+                                     self.mesh)
+        return {k: distribute(v, self.mesh, placements[k])
+                for k, v in out.items()}
 
     def initialize(self, resume: bool = True) -> None:
         self.params = self.model.init(self.cfg.seed)
+        if self.mesh is not None:
+            from torch.distributed.tensor import Replicate
+
+            rep = [Replicate()] * self.mesh.ndim
+            self.params = tree_map(lambda p: distribute(p, self.mesh, rep),
+                                   self.params)
         self.opt_state = init_opt_state(self.params, self.cfg.optimizer)
         if resume and self.ckpt.latest_step() is not None:
             tree = {"params": self.params, "opt": self.opt_state}

@@ -162,3 +162,28 @@ def test_encode_image_matches_jax(models):
     want = JTierEngine(jm, jp, JServingConfig(**sv)).encode_image(img, 8, 48)
     got = TierEngine(tm, tp, ServingConfig(**sv)).encode_image(img, 8, 48)
     np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_a_dropped_paged_engine_is_freed_without_the_cycle_collector():
+    """The prefix store's eviction hook reaches its engine through a weak
+    reference: with ``gc`` disabled, dropping the last reference to a
+    paged engine (with a prefix store) frees it and its caches at once."""
+    import gc
+    import weakref
+
+    cfg = reduced_config("qwen2-vl-2b").replace(dtype="float32")
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    gc.collect()
+    gc.disable()
+    try:
+        eng = TierEngine(model, params, ServingConfig(
+            max_batch=2, max_seq=64, paged=True, kv_page_size=16,
+            prefix_cache_mb=8.0), eos_id=-1)
+        eng.submit(0, np.arange(4, 24, dtype=np.int32), max_new=3)
+        eng.run_until_drained()
+        alive = weakref.ref(eng), weakref.ref(eng.cache["blocks"]["k"])
+        del eng
+        assert [r() is None for r in alive] == [True, True]
+    finally:
+        gc.enable()

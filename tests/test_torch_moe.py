@@ -285,3 +285,32 @@ def test_moe_engine_matches_jax_tokens(paged, fused, moe_models):
     assert out[1] == out[0]
     if fused > 1:  # bucketed admission: one prefill group per request
         assert groups and set(groups) == {1}
+
+
+@pytest.mark.parametrize("cf", [8.0, 0.25], ids=["headroom", "overflow"])
+def test_combine_gathers_what_jax_scatters(cf):
+    """The dropping combine (a gather through the slot plan's inverse,
+    summed in slot order, no atomics) against JAX's scatter-add on the
+    same plan and expert outputs, within 1e-5; dropped assignments (under
+    overflow) add nothing. Two calls are bitwise equal."""
+    rng = np.random.default_rng(7)
+    t, k, e = 24, 2, 8
+    ids = np.stack([rng.choice(e, k, replace=False) for _ in range(t)])
+    w = rng.random((t, k)).astype(np.float32)
+    cap = max(1, int(t * k / e * cf))
+    plan = tmoe._dispatch_plan(torch.as_tensor(ids), torch.as_tensor(w), 0,
+                               e, cap)
+    slot_src, slot_w, slot_valid, tok_slot = plan
+    y_buf = rng.standard_normal((e, cap, 16)).astype(np.float32)
+    y_buf *= slot_valid.numpy().reshape(e, cap, 1)  # empty slots compute 0
+    got = tmoe._combine_gather(torch.as_tensor(y_buf), tok_slot, slot_w)
+    js, jw, jv = jmoe._dispatch_plan(jnp.asarray(ids), jnp.asarray(w), 0, e,
+                                     cap)
+    np.testing.assert_array_equal(slot_src.numpy(), np.asarray(js))
+    want = jmoe._combine_scatter(jnp.asarray(y_buf), js, jw, t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+    assert torch.equal(got, tmoe._combine_gather(torch.as_tensor(y_buf),
+                                                 tok_slot, slot_w))
+    kept = (tok_slot < e * cap).sum().item()
+    assert kept == int(slot_valid.sum()) and (kept < t * k) == (cf < 1)

@@ -26,7 +26,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serving.tiers, repro_torch.kernels.ops, "
             "repro_torch.serving.simulator, repro_torch.models.moe, "
             "repro_torch.models.encdec, repro_torch.training, "
-            "repro_torch.checkpoint, repro_torch.launch.train\n"
+            "repro_torch.checkpoint, repro_torch.launch.train, "
+            "repro_torch.distributed, "
+            "repro_torch.distributed.fault_tolerance, "
+            "repro_torch.checkpoint.elastic, repro_torch.launch.mesh, "
+            "repro_torch.launch.cost_analysis, repro_torch.launch.dryrun\n"
             "import numpy as np, torch\n"
             "from repro_torch.serving.engine import SeqState, SlotPayload\n"
             "k = torch.randn(2, 8, 2, 4).to(torch.bfloat16)\n"
@@ -41,7 +45,9 @@ def test_importing_the_port_loads_no_jax():
             "or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
             "assert not bad, bad\n"
             "from repro_torch.kernels import runtime\n"
-            "assert not runtime._loaded, 'a kernel library loaded at import'\n")
+            "assert not runtime._loaded, 'a kernel library loaded at import'\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized(), 'a process group at import'\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)

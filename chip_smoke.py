@@ -4,7 +4,8 @@
 Phases, in order; any failure exits non-zero and no phase catches its own:
   1. device name, count, and nvidia-smi's name and power limit;
   2. build every CUDA source with nvcc (one process per source, in
-     parallel) and print the -Xptxas -v register / shared-memory lines;
+     parallel) and print each kernel instance's registers and spilled
+     bytes from -Xptxas -v; fails if a bf16 instance spills;
   3. hold the image-statistics kernel against its plain version at the
      serving, degenerate, flat and 1024x1024 shapes (histogram exact, the
      five scores within 1e-6, repeated calls bitwise equal) and time it
@@ -29,7 +30,14 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      calls), with SDPA timed the same way in turns and the eager wall per
      call beside it, at T=384 and T=4096, and at phi-3-vision's,
      recurrentgemma's, qwen3-moe's and whisper-small's decode and prefill
-     shapes (the encoder's non-causal S=1500 against SDPA, is_causal=False);
+     shapes (the encoder's non-causal S=1500 against SDPA, is_causal=False).
+     bf16 flash must run the wgmma kernel at hd 64, 96 and 128 and the
+     mma.sync one at hd 32, 192 and 256, and every bf16 case also holds to
+     its tile loop (8e-3); every lean bf16 decode instance also holds to its
+     bf16-P split mirror (8e-3). Each flash shape prints the exponentials'
+     bound beside the bound. With ``--parent-csrc DIR`` the attention
+     kernels built from DIR (another tree's csrc/) are timed in turns with
+     this tree's at every timed shape;
   4. at full width and depth (qwen2-vl-2b edge, qwen2.5-vl-7b cloud, bf16,
      random weights from a seed): one prefill batch of the serving shapes
      through attn_impl "auto" and "cuda" on the same weights (logit
@@ -92,7 +100,10 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      three requests of the launcher's mix through ClusterServer on a paged
      pool under "cuda"; fails unless both attention kernels launched at
      hd 96;
-  12. the MoE and encoder-decoder families: (a) qwen3-moe-235b-a22b at full
+  12. (first reads the device memory still held from the phases before,
+     with no collection, and fails above 1 GiB: a dropped engine or
+     ClusterServer frees itself) the MoE and encoder-decoder families:
+     (a) qwen3-moe-235b-a22b at full
      width, its depth cut to 8 of 94 layers (bf16, random weights, moe_impl
      "auto" = dense): a 320-token prefill under "cuda" against "auto" and
      under moe_impl "dropping" beside "dense" (CUDA events), four requests
@@ -158,14 +169,19 @@ line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py                 # everything (one GPU)
     python3 chip_smoke.py --phases 1,2,3  # a subset, for debugging
+    python3 chip_smoke.py --phases 1,2,3 --parent-csrc build/parent_csrc
+        # phase 3 beside the parent's kernels, after
+        # git show HEAD:src/repro_torch/csrc/<stem>.cu > build/parent_csrc/<stem>.cu
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -176,6 +192,9 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 non-tensor, bf16 dense
+
+
+MUFU_EX2_PER_CLOCK = 16  # exp2 results a clock an SM (sm_90)
 
 
 def fail(msg: str) -> None:
@@ -210,6 +229,24 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _max_sm_hz() -> float:
+    """The card's top SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi clocks.max.sm: {smi.stderr.strip()}")
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
 def phase_device():
     import torch
 
@@ -227,6 +264,40 @@ def phase_device():
     return name, count, card
 
 
+def _ptxas_entries(log: str):
+    """``{kernel instance: (registers, spill bytes)}`` from ``-Xptxas -v``
+    output; an instance is named ``base<template args>`` (e.g.
+    ``flash_bf16_wgmma_kernel<64>``, ``decode_bf16_kernel<256,16,1>``)."""
+    entries, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(_Z\w+)", line)
+        if m:
+            mangled = m.group(1)
+            # the last <length><identifier> of the nested name: the kernel's
+            i, base = (3 if mangled.startswith("_ZN") else 2), mangled
+            while i < len(mangled) and mangled[i].isdigit():
+                j = i
+                while mangled[j].isdigit():
+                    j += 1
+                base, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            name = base + (f"<{','.join(args)}>" if args else "")
+            continue
+        if name is None:
+            continue
+        regs, spill = entries.get(name, (None, 0))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = int(m.group(1))
+        entries[name] = (regs, spill)
+    return entries
+
+
 def phase_build():
     from repro_torch.kernels import runtime
 
@@ -236,19 +307,15 @@ def phase_build():
         runtime.load(src.stem)
     print(f"built {len(runtime.sources())} sources in "
           f"{time.perf_counter() - t0:.1f}s into {runtime.build_dir()}")
+    spilled = []
     for stem, log in sorted(logs.items()):
-        for line in log.splitlines():
-            if any(w in line for w in ("Compiling entry", "registers",
-                                       "spill", "smem")):
-                print(f"  [{stem}] {line.strip()}")
-    # the serving prefill kernel's lines, picked out of its entry's block
-    entry = False
-    for line in logs.get("flash_attention", "").splitlines():
-        if "Compiling entry" in line:
-            entry = "flash_bf16_wgmma_kernel" in line
-        elif entry and any(w in line for w in ("registers", "spill")):
-            print(f"  flash_bf16_wgmma_kernel (hd 128): "
-                  f"{line.strip().split(': ', 1)[-1]}")
+        for name, (regs, spill) in sorted(_ptxas_entries(log).items()):
+            print(f"  [{stem}] {name}: {regs} registers, {spill} bytes "
+                  f"spilled")
+            if "bf16" in name and spill:
+                spilled.append(name)
+    if spilled:
+        fail(f"phase 2: bf16 kernel instances spill: {spilled}")
 
 
 # ---------------------------------------------------------------------------
@@ -475,6 +542,84 @@ def eager_time_ms(fns, rounds: int) -> float:
                         warmup=1) / len(fns)
 
 
+#: the parent tree's kernel libraries by source stem (``--parent-csrc``),
+#: timed in turns with this tree's in phase 3
+PARENT_LIBS = {}
+
+
+def build_parent(csrc_dir: str) -> None:
+    """Build another tree's ``csrc/*.cu`` (the parent commit's, unpacked by
+    the caller) with the port's nvcc flags into ``build/parent_kernels/``,
+    one process per source, and load them; their C entry points must have
+    this tree's signatures (argtypes are copied from this tree's libraries)."""
+    import ctypes
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import runtime
+
+    out = os.path.join(ROOT, "build", "parent_kernels")
+    os.makedirs(out, exist_ok=True)
+    procs = []
+    for stem in ("flash_attention", "decode_attention"):
+        src = os.path.join(csrc_dir, f"{stem}.cu")
+        lib = os.path.join(out, f"lib{stem}.so")
+        procs.append((stem, lib, subprocess.Popen(
+            [runtime._nvcc(), *runtime.NVCC_FLAGS, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    for stem, lib, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"parent kernel {stem}: nvcc exit {proc.returncode}\n{err}")
+        parent = ctypes.CDLL(lib)
+        ours = (fa if stem == "flash_attention" else da)._lib()
+        fn = f"{stem}_launch"
+        getattr(parent, fn).argtypes = getattr(ours, fn).argtypes
+        getattr(parent, fn).restype = getattr(ours, fn).restype
+        PARENT_LIBS[stem] = parent
+    print(f"  built the parent's kernels from {csrc_dir} into {out}")
+
+
+def _on_parent(stem: str, fns):
+    """``fns`` run against the parent's library of ``stem`` (the kernel
+    module's ``_lib`` swapped during each call, so a graph captures the
+    parent's launches); None without ``--parent-csrc``."""
+    import importlib
+
+    lib = PARENT_LIBS.get(stem)
+    if lib is None:
+        return None
+    mod = importlib.import_module(f"repro_torch.kernels.{stem}")
+
+    def call(fn):
+        own = mod._lib
+        mod._lib = lambda: lib
+        try:
+            return fn()
+        finally:
+            mod._lib = own
+    return [lambda fn=fn: call(fn) for fn in fns]
+
+
+def time_in_turns(fns, sdpa, replays, parent=None):
+    """Device time per call of ``fns`` and ``sdpa`` (and of ``parent``, the
+    same calls on the parent's kernel) from replayed CUDA graphs in turns:
+    kernel, parent, SDPA, SDPA, parent, kernel. Returns ((k1, k2), (s1,
+    s2), (p1, p2) or None, the kernel graph's outputs)."""
+    k1, outs = graph_time_ms(fns, replays)
+    p1 = graph_time_ms(parent, replays)[0] if parent else None
+    s1, _ = graph_time_ms(sdpa, replays)
+    s2, _ = graph_time_ms(sdpa, replays)
+    p2 = graph_time_ms(parent, replays)[0] if parent else None
+    k2, _ = graph_time_ms(fns, replays)
+    return (k1, k2), (s1, s2), ((p1, p2) if parent else None), outs
+
+
+def _parent_note(par):
+    return (f", parent's kernel device {(par[0] + par[1]) / 2 * 1e3:.2f} us "
+            f"({par[0] * 1e3:.2f}, {par[1] * 1e3:.2f})" if par else "")
+
+
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -551,15 +696,33 @@ def _paged_case(b, h, kh, hd, page, n_pt, t_ctx, dtype, gen, *, window=None,
     return q, kp, vp, pages[:, :npg], pq, pos, window, stack
 
 
-def _hold(label, got, want, dtype, v_rows=None):
+# A lean bf16 decode instance against its split mirror
+# (decode_attention_split_plain with P rounded to bf16): the kernel rounds P
+# at its warp's running max, the mirror at the split's max, so the two differ
+# by the f32 summation order, one bf16 ulp of the output (at most 2^-7 of it)
+# where the two f32 results round apart, and P's two roundings (each at most
+# 2^-9 of a row's weight times |v|): 8e-3, as for flash's tile loop.
+LEAN_TOL = 8e-3
+
+
+def _hold(label, got, want, dtype, v_rows=None, mirror=None):
     """got against want at the dtype's tolerance; with ``v_rows`` (the last
-    slot's attended (T, K, hd) value rows) also that slot against mean(V)."""
+    slot's attended (T, K, hd) value rows) also that slot against mean(V);
+    with ``mirror`` (a lean instance's split mirror) also against it at
+    LEAN_TOL."""
     import torch
 
     t = KERNEL_TOL[str(dtype)[6:]]
     err = float((got.float() - want.float()).abs().max())
     if not torch.allclose(got.float(), want.float(), rtol=t, atol=t):
         fail(f"{label} {dtype}: max |err| {err}")
+    merr = None
+    if mirror is not None:
+        merr = float((got.float() - mirror.float()).abs().max())
+        if not torch.allclose(got.float(), mirror.float(), rtol=LEAN_TOL,
+                              atol=LEAN_TOL):
+            fail(f"{label} {dtype} against its bf16-P split mirror: max "
+                 f"|err| {merr}")
     if v_rows is not None:
         kh, hd = v_rows.shape[1:]
         mean_v = v_rows.float().mean(dim=0)  # (K, hd)
@@ -569,8 +732,35 @@ def _hold(label, got, want, dtype, v_rows=None):
             fail(f"{label} {dtype}: the all-masked slot does not return "
                  f"mean(V)")
     print(f"  {label} {str(dtype)[6:]}: max |err| {err:.3g} (tol {t})"
-          + (", all-masked slot = mean(V)" if v_rows is not None else ""))
+          + (", all-masked slot = mean(V)" if v_rows is not None else "")
+          + (f"; lean, against its bf16-P split mirror {merr:.3g} (tol "
+             f"{LEAN_TOL})" if merr is not None else ""))
     return err
+
+
+def _lean_mirror(q, k, v, pq, pos, window, rows, dtype, pages=None):
+    """The split mirror of a lean bf16 instance (None for any other call):
+    ``decode_attention_split_plain`` with P rounded to bf16, over the rows
+    the kernel's splits take (``rows``: forced, or the wrapper's choice);
+    paged, over the context gathered through ``pages``."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_split_plain, lean_instance, split_rows_for)
+    b, _, h, hd = q.shape
+    kh, t = k.shape[2], pos.shape[1]
+    if dtype != torch.bfloat16 or not lean_instance(hd, h // kh):
+        return None
+    page = None
+    if pages is not None:
+        page, idx = k.shape[1], pages.long()
+        k = k[idx].reshape(b, -1, kh, hd)[:, :t]
+        v = v[idx].reshape(b, -1, kh, hd)[:, :t]
+    if rows is None:
+        rows = split_rows_for(b, kh, t, _sm_count(), page)
+    return decode_attention_split_plain(q, k, v, pq, pos, window=window,
+                                        split_rows=rows,
+                                        p_dtype=torch.bfloat16)
 
 
 # The attention shapes of the model zoo beyond the serving pair's hd 128 /
@@ -636,7 +826,21 @@ ZOO_FLASH = [
      False, None, "contiguous"),
     ("whisper decoder hd64 12/12 causal S=16", 4, 16, 12, 12, 64, True, None,
      "contiguous"),
+    # the head dims the wgmma kernel took over from mma.sync: hd 96 staged
+    # into the hd-128 tile, hd 64 on one 128-byte atom
+    ("hd96 non-causal", 2, 200, 8, 8, 96, False, None, "contiguous"),
+    ("hd96 q unaligned view", 2, 100, 4, 2, 96, True, None, "unaligned"),
+    ("hd96 q (B,H,S,hd) view", 2, 160, 8, 2, 96, True, None, "bhsd"),
+    ("hd96 S=1", 2, 1, 4, 4, 96, True, None, "contiguous"),
+    ("hd64 window 40 ragged S=300", 2, 300, 8, 2, 64, True, 40,
+     "contiguous"),
+    ("hd64 16/1 S=65", 2, 65, 16, 1, 64, True, None, "contiguous"),
 ]
+#: the bf16 flash kernel each head dim runs (``kernel_of``)
+FLASH_BF16_ROUTE = {32: "flash_bf16_kernel", 64: "flash_bf16_wgmma_kernel",
+                    96: "flash_bf16_wgmma_kernel",
+                    128: "flash_bf16_wgmma_kernel", 192: "flash_bf16_kernel",
+                    256: "flash_bf16_kernel"}
 # timed: (label, b, s, h, kh, hd, window, causal)
 ZOO_FLASH_TIMED = [
     ("phi-3-vision", 4, 640, 32, 32, 96, None, True),
@@ -708,7 +912,8 @@ def check_decode_dense(records):
             want = decode_attention_plain(q, kv, vv, pq, pv, window=window)
             torch.cuda.synchronize()
             err = _hold(f"decode_attention {label}", got, want, dtype,
-                        vv[b - 1] if kw.get("dead_slot") else None)
+                        vv[b - 1] if kw.get("dead_slot") else None,
+                        _lean_mirror(q, kv, vv, pq, pv, window, rows, dtype))
             _held(held, dtype, hd, h // kh, err)
             if label == "cloud" and dtype == torch.bfloat16:
                 worst = err
@@ -766,7 +971,8 @@ def check_decode_paged(records):
             dead = (vp[0].repeat(-(-tx // page), 1, 1)[:tx]
                     if kw.get("dead_slot") else None)
             err = _hold(f"decode_attention_paged {label}", got, want, dtype,
-                        dead)
+                        dead, _lean_mirror(q, kp, vp, pq, pos, window, rows,
+                                           dtype, pages))
             _held(held, dtype, hd, h // kh, err)
             if label == "cloud" and dtype == torch.bfloat16:
                 worst = err
@@ -840,10 +1046,8 @@ def time_decode(records, paged, label, h, kh, t, worst, gen, hd=128,
         qs, kv[i][0].transpose(1, 2), kv[i][1].transpose(1, 2),
         attn_mask=mask, enable_gqa=True) for i in range(layers)]
     replays = max(10, -(-280 // layers))
-    k1, outs = graph_time_ms(fns, replays)
-    s1, _ = graph_time_ms(sdpa, replays)
-    s2, _ = graph_time_ms(sdpa, replays)
-    k2, _ = graph_time_ms(fns, replays)
+    (k1, k2), (s1, s2), par, outs = time_in_turns(
+        fns, sdpa, replays, _on_parent("decode_attention", fns))
     for i, fn in enumerate(fns):
         if not torch.equal(outs[i], fn()):
             fail(f"decode {label} T={t}: graph replay differs from eager")
@@ -871,13 +1075,15 @@ def time_decode(records, paged, label, h, kh, t, worst, gen, hd=128,
                      + (" query at 10**9" if cross else ""),
             "device_ms": dev, "eager_ms": eager, "plain_ms": plain_ms,
             "bound_ms": bd, "bound_by": by, "library_ms": lib,
-            "share_of_bound": bd / dev})
+            "share_of_bound": bd / dev,
+            "parent_ms": (par[0] + par[1]) / 2 if par else None})
     print(f"  {name} {label} B=4 T={t} hd {hd} bf16 ({layers} layers "
           f"rotated): "
           f"device {dev * 1e3:.2f} us ({k1 * 1e3:.2f}, {k2 * 1e3:.2f}), "
           f"eager wall {eager * 1e3:.2f} us, sdpa device {lib * 1e3:.2f} us "
           f"({s1 * 1e3:.2f}, {s2 * 1e3:.2f})"
           + (f", plain device {plain_ms * 1e3:.2f} us" if plain_ms else "")
+          + _parent_note(par)
           + f", bound {bd * 1e3:.3f} us ({by}), {bd / dev:.1%} of it")
     if label == "cloud" and t <= 512:
         records[name] = {
@@ -919,7 +1125,7 @@ def check_flash(records):
 
     from repro_torch.kernels.flash_attention import (
         blocks_per_sm, flash_attention_cuda, flash_attention_plain,
-        flash_attention_tiled_plain)
+        flash_attention_tiled_plain, kernel_of)
     gen = torch.Generator(device="cuda").manual_seed(3)
     cases = [
         # (label, b, s, h, kh, hd, causal, window, q layout)
@@ -969,9 +1175,12 @@ def check_flash(records):
                          f"loop: max |err| {terr}")
                 msg += f"; against its tile loop {terr:.3g} (tol {TILED_TOL})"
             print(msg)
-    for hd in (32, 64, 96, 128, 192, 256):
-        print(f"  flash_attention resident blocks an SM, hd {hd}: bf16 "
-              f"{blocks_per_sm(torch.bfloat16, hd)}, f32 "
+    for hd, want in FLASH_BF16_ROUTE.items():
+        got = kernel_of(torch.bfloat16, hd)
+        if got != want:
+            fail(f"flash_attention bf16 hd {hd} runs {got}, not {want}")
+        print(f"  flash_attention hd {hd}: bf16 runs {got}; resident blocks "
+              f"an SM: bf16 {blocks_per_sm(torch.bfloat16, hd)}, f32 "
               f"{blocks_per_sm(torch.float32, hd)}")
     shapes = [time_flash(label, b, s, h, kh, gen)
               for label, b, s, h, kh in (("edge", 4, 320, 12, 2),
@@ -1027,10 +1236,8 @@ def time_flash(label, b, s, h, kh, gen, hd=128, window=None, causal=True):
             kvs[i, 1].transpose(1, 2), attn_mask=wmask, enable_gqa=True)
             for i in range(layers)]
     replays = max(10, -(-280 // layers))
-    k1, outs = graph_time_ms(fns, replays)
-    s1, _ = graph_time_ms(sdpa, replays)
-    s2, _ = graph_time_ms(sdpa, replays)
-    k2, _ = graph_time_ms(fns, replays)
+    (k1, k2), (s1, s2), par, outs = time_in_turns(
+        fns, sdpa, replays, _on_parent("flash_attention", fns))
     for i, fn in enumerate(fns):
         if not torch.equal(outs[i], fn()):
             fail(f"flash {label} R={b} S={s}: graph replay differs from eager")
@@ -1054,6 +1261,10 @@ def time_flash(label, b, s, h, kh, gen, hd=128, window=None, causal=True):
         pairs = sum(min(r + 1, window) for r in range(s))
     flops = 4.0 * b * h * hd * pairs
     bd, by = bound_ms(nbytes, flops, "bfloat16")
+    # a second bound: one exp2 a score on the SMs' special-function units
+    # (16 a clock an SM) at the card's top SM clock
+    exp_bd = (b * h * pairs * 1e3
+              / (MUFU_EX2_PER_CLOCK * _sm_count() * _max_sm_hz()))
     shape = (f"{label} R={b} S={s}" + (f" hd {hd}" if hd != 128 else "")
              + (f" group {h // kh}" if h // kh > 8 or hd != 128 else "")
              + (f" window {window}" if window else "")
@@ -1063,12 +1274,16 @@ def time_flash(label, b, s, h, kh, gen, hd=128, window=None, causal=True):
           f"{eager * 1e3:.2f} us, sdpa device {lib * 1e3:.2f} us "
           f"({s1 * 1e3:.2f}, {s2 * 1e3:.2f})"
           + (f", plain device {plain_ms * 1e3:.2f} us" if plain_ms else "")
-          + f", bound {bd * 1e3:.3f} us ({by}), {bd / dev:.1%} of it")
+          + _parent_note(par)
+          + f", bound {bd * 1e3:.3f} us ({by}), {bd / dev:.1%} of it; "
+          f"exponentials' bound {exp_bd * 1e3:.3f} us")
     del qs, kvs
     torch.cuda.empty_cache()
     return {"shape": shape, "device_ms": dev, "library_ms": lib,
             "eager_ms": eager, "plain_ms": plain_ms, "bound_ms": bd,
-            "bound_by": by, "share_of_bound": bd / dev}
+            "bound_by": by, "share_of_bound": bd / dev,
+            "exp_bound_ms": exp_bd,
+            "parent_ms": (par[0] + par[1]) / 2 if par else None}
 
 
 # ---------------------------------------------------------------------------
@@ -2814,22 +3029,23 @@ def moe_encdec_reduced_parity():
               f"{n_tok} tokens, fused and per-token, paged and dense{msg}")
 
 
-def phase_moe_encdec(records):
-    import gc
+#: device memory phase 12 may find still held from the phases before it
+HELD_LIMIT_BYTES = 2 ** 30
 
+
+def phase_moe_encdec(records):
     import torch
 
     t0 = time.perf_counter()
-    # a dropped engine frees its weights at once, but the cluster runtime
-    # that served phase 11's engines (``ClusterServer``; its copied
-    # ``runtime.py`` keeps a handler table of its own bound methods, and
-    # ``LiveBackend`` hangs callbacks that close over it on each engine)
-    # sits in reference cycles that hold those engines: collect them
+    # a dropped engine and a dropped ClusterServer free their weights and
+    # caches at once (no reference cycle holds them), so what the phases
+    # before left is read before any collection
     held = torch.cuda.memory_allocated()
-    gc.collect()
-    print(f"  held from earlier phases: {held / 2**30:.2f} GiB, after "
-          f"collecting cycles {torch.cuda.memory_allocated() / 2**30:.2f} "
-          f"GiB")
+    print(f"  held from earlier phases (no collection): "
+          f"{held / 2**30:.2f} GiB")
+    if held > HELD_LIMIT_BYTES:
+        fail(f"phase 12: {held / 2**30:.2f} GiB still held from earlier "
+             f"phases (limit {HELD_LIMIT_BYTES / 2**30:.0f} GiB)")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     qwen3_moe_full_width(records)
@@ -3596,6 +3812,11 @@ def main() -> None:
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--parent-csrc", default=None,
+                    help="a directory with another tree's attention kernel "
+                         "sources (e.g. the parent commit's csrc/, unpacked "
+                         "with git archive): phase 3 times them in turns "
+                         "with this tree's")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -3614,6 +3835,8 @@ def main() -> None:
     if 2 in phases or 3 in phases:
         print("phase 2: build")
         phase_build()
+        if args.parent_csrc:
+            build_parent(args.parent_csrc)
     records = {}
     if 3 in phases:
         print("phase 3: kernels vs plain versions")

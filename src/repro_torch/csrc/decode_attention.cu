@@ -13,8 +13,12 @@
 // the sliding window; masked scores take the finite value -1e30 (never
 // -inf), so a row whose T entries are all masked returns the mean of its T
 // value rows, exactly as the XLA path does. Entries past T are not attended.
-// Softmax runs online in f32 and the probabilities stay f32 for the PV sum
-// (as in the Pallas body); output = acc / max(l, 1e-30).
+// Softmax runs online in f32; output = acc / max(l, 1e-30). The
+// probabilities reach the PV sum in f32 (as in the Pallas body) in every
+// instance but the lean bf16 ones (below), which round the unnormalised
+// P to bf16 for the tensor cores, as the bf16 flash kernel does; the plain
+// version and the XLA path round the normalised P to the cache's dtype.
+// decode_attention_split_plain(p_dtype=bfloat16) mirrors the lean rounding.
 //
 // What bounds it: decode reads each K and V row of the attended context
 // once, 2 * B * T * K * hd * sizeof(dtype) bytes, and does about 4 flops per
@@ -46,15 +50,32 @@
 //   tile. The products of bf16 values are exact in f32 and accumulate in
 //   f32, as in the plain version. A quad of lanes holds one head's scores
 //   (heads n and n + 8 with kMaxG = 16: the m16 rows of the A operand), so
-//   the online softmax (f32) needs two shuffles for the max. The
-//   probabilities stay f32 and reach the PV sum through shared memory; there
-//   each lane owns HD/32 dims of every head and sums with f32 FMAs. Where
-//   the lane's sums would pass 32 registers (kMaxG * HD/32 > 32: hd 128 at
-//   kMaxG 16, hd 192 and 256) the instance is "lean": q stays in shared
-//   memory and is read per tile, and the value rows are taken one at a
-//   time, so acc[kMaxG][HD/32] (128 registers at hd 256, group 16) is the
-//   only large array. A
-//   design with CUDA-core dot products for bf16 as well (the f32 scheme
+//   the online softmax (f32) needs two shuffles for the max. Two designs
+//   of the PV sum, by the registers its sums take:
+//   - kMaxG * HD/32 <= 32 (hd <= 128 at kMaxG 8: the serving shapes; hd 32
+//     and 64 at kMaxG 16): the probabilities stay f32 and reach the PV sum
+//     through shared memory; each lane owns HD/32 dims of every head and
+//     sums with f32 FMAs.
+//   - the "lean" instances, kMaxG * HD/32 > 32 (hd 96 and 128 at kMaxG 16,
+//     the latter qwen3-moe's; hd 192: nemotron-4; hd 256: recurrentgemma):
+//     q reaches shared memory by 16-byte cp.async ahead of the ring's
+//     first stages (one round trip, where element loads took one a word)
+//     and is read per tile, and PV runs on the tensor cores as m16n8k8
+//     with the unnormalised P, rounded to bf16, as the A operand straight
+//     from the score fragments (rows: heads n and n + 8; depth: the warp's
+//     8 value rows) and V's B fragments by ldmatrix.trans from the padded
+//     stage. The sums are the C fragments, HD/2 registers a lane (128 at
+//     hd 256); a lane rescales its own heads' rows by its own correction
+//     factor, so no probability or factor passes through shared memory.
+//     What bounds these shapes on an H100 is each block's serial chain
+//     (q and the first stages' round trip, the score product, the
+//     softmax's shuffles and exponentials, HD/8 PV products a warp, the
+//     merge), not the bytes: at recurrentgemma's ring (T=2048, 16 heads on
+//     one KV head) the kernel reaches 14% of the byte bound; with f32 PV
+//     FMAs (16 heads x 8 dims a value row, per lane) it reached 12%
+//     (PERF.md). kMaxG 8 at hd 192/256 leaves rows 8-15 of the A operand
+//     zero.
+//   A design with CUDA-core dot products for bf16 as well (the f32 scheme
 //   below) issues about 100 warp instructions per context row and holds
 //   168 registers; on an H100 it reached about a quarter of the byte bound
 //   at T=4096, B=4 (PERF.md).
@@ -190,6 +211,29 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c (16x8 f32) += a (16x8 bf16, row) * b (8x8 bf16, col)
+__device__ __forceinline__ void mma_bf16_k8(float* c, const uint32_t* a, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// four 8x8 bf16 matrices from shared memory, transposed: lanes 8j..8j+7 give
+// the row addresses of matrix j, and r[j] is its m16n8k8 B fragment
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // N bf16 from shared memory as f32: 8-byte words when N % 4 == 0, 4-byte
 // words when N is even, else single elements (p aligned to that size)
 template <int N>
@@ -295,11 +339,12 @@ __device__ __forceinline__ void finish_split(const Args& a, const float* acc_s,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: q.K^T on the tensor cores, softmax and PV in f32
+// bf16: q.K^T on the tensor cores, softmax in f32; PV in f32 FMAs, or on
+// the tensor cores in the lean instances
 // ---------------------------------------------------------------------------
 
 // The lean instances (see the note at the top) keep q in shared memory and
-// take the value rows one at a time.
+// run PV on the tensor cores.
 template <int HD, int MAXG>
 struct LeanBf16 {
   static constexpr bool value = MAXG * (HD / 32) > 32;
@@ -333,8 +378,9 @@ constexpr size_t smem_bf16() {
 // Grid (splits, K, B), 4 warps. A stage is 8 rows a warp; lane (n, q) with
 // n = lane / 4, q = lane % 4 holds the scores of head n (and, with MAXG =
 // 16, head n + 8) for rows 2q, 2q + 1 (the m16n8 accumulator; rows of the
-// A operand past G are zero). For the PV sum lane l owns dims
-// [l * HD/32, (l+1) * HD/32) of every head.
+// A operand past G are zero). For the f32 PV sum lane l owns dims
+// [l * HD/32, (l+1) * HD/32) of every head; the lean PV sum is in m16n8k8's
+// C layout.
 template <int HD, int MAXG, bool PAGED>
 __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
   using S = SmemBf16<HD, MAXG>;
@@ -347,6 +393,7 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
   constexpr bool kLean = LeanBf16<HD, MAXG>::value;
   static_assert(MAXG == 8 || MAXG == 16, "groups of at most 8 or 16");
   static_assert(HD % 32 == 0 && HD <= 256, "head dim a multiple of 32, <= 256");
+  static_assert(sizeof(S) % 16 == 0, "a lean q row starts 16-byte aligned");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(smem_raw);
   unsigned short* q_s = reinterpret_cast<unsigned short*>(smem_raw + sizeof(S));
@@ -356,6 +403,23 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
   const int n = lane >> 2, kq = (lane & 3) * 2;
   const int G = a.H / a.K;
   const bool vec = a.vec != 0;
+  if constexpr (kLean) {
+    // q (MAXG rows, zero past G) to shared memory by 16-byte copies, a
+    // group of its own ahead of the ring's first stages
+    const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) +
+                              ((int64_t)b * a.H + (int64_t)kh * G) * HD;
+    for (int e = threadIdx.x; e < MAXG * (HD / 8); e += kThreads) {
+      const int r = e / (HD / 8), d = (e % (HD / 8)) * 8;
+      unsigned short* dst = q_s + r * LD + d;
+      if (r >= G)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      else if (vec)
+        cp_async16(dst, qg + r * HD + d);
+      else
+        *reinterpret_cast<uint4*>(dst) = load16(qg + r * HD + d, false);
+    }
+    cp_async_commit();
+  }
   const Split sp = begin_split<PAGED>(a, split, b, sm.pages);
   const int n_tiles = (sp.n_rows + TILE - 1) / TILE;
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k);
@@ -409,11 +473,8 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
   };
   uint32_t qa[kLean ? 1 : KS][4];
   if constexpr (kLean) {
-    for (int e = threadIdx.x; e < MAXG * (HD / 2); e += kThreads) {
-      const int r = e / (HD / 2), d = (e % (HD / 2)) * 2;
-      *reinterpret_cast<uint32_t*>(q_s + r * LD + d) = q_pair(r, d);
-    }
-    __syncthreads();
+    cp_async_wait<kStages - 1>();  // q's group landed; the stages may not
+    __syncthreads();               // ... for every thread
   } else {
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
@@ -430,11 +491,14 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
     m[j] = kMasked;
     l[j] = 0.f;
   }
-  float acc[MAXG][DPL];
+  // PV sums: lean, the m16n8k8 C fragments of HD/8 n-tiles (heads n and
+  // n + 8, dims nt * 8 + kq, + 1); otherwise the lane's DPL dims of every head
+  constexpr int AR = kLean ? HD / 8 : MAXG, AC = kLean ? 4 : DPL;
+  float acc[AR][AC];
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g)
+  for (int g = 0; g < AR; ++g)
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < AC; ++i) acc[g][i] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
     if (it + kStages - 1 < n_tiles) fetch(it + kStages - 1);
@@ -467,6 +531,7 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
     const int r0 = it * TILE + warp * kWarpRows + kq;
     const int st0 = row_state(a, r0 < sp.n_rows, sm.pos[stage][warp][kq], pq);
     const int st1 = row_state(a, r0 + 1 < sp.n_rows, sm.pos[stage][warp][kq + 1], pq);
+    uint32_t pfrag[2] = {0u, 0u};  // lean: P of heads n, n + 8 (bf16), m16n8k8's A
 #pragma unroll
     for (int j = 0; j < HPL; ++j) {
       const float s0 = st0 == 1 ? kMasked : c[2 * j] * a.scale2;
@@ -481,34 +546,35 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
       const float p1 = st1 ? exp2f(s1 - mx) : 0.f;
       l[j] = l[j] * corr + p0 + p1;
       m[j] = mx;
-      *reinterpret_cast<float2*>(&sm.p[warp][n + 8 * j][kq]) = make_float2(p0, p1);
-      if (kq == 0) sm.corr[warp][n + 8 * j] = corr;
-    }
-    __syncwarp();
-    if constexpr (kLean) {
-      // PV in f32, one value row at a time (few registers beyond acc)
+      if constexpr (kLean) {
+        // this lane's acc rows are heads n (j = 0) and n + 8 (j = 1): it
+        // rescales them by its own correction
+        pfrag[j] = pack_f32(p0, p1);
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g < G) {
-          const float cg = sm.corr[warp][g];
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[g][i] *= cg;
+        for (int nt = 0; nt < HD / 8; ++nt) {
+          acc[nt][2 * j] *= corr;
+          acc[nt][2 * j + 1] *= corr;
         }
+      } else {
+        *reinterpret_cast<float2*>(&sm.p[warp][n + 8 * j][kq]) = make_float2(p0, p1);
+        if (kq == 0) sm.corr[warp][n + 8 * j] = corr;
       }
+    }
+    if constexpr (kLean) {
+      // PV on the tensor cores: the unnormalised P, rounded to bf16, is the
+      // m16n8k8 A fragment straight from the score fragment (rows: heads n,
+      // n + 8; depth: the warp's 8 value rows, 2 a lane); V's B fragments by
+      // ldmatrix.trans, 4 n-tiles of 8 dims a load
+      const uint32_t v_lane = smem_addr(vs + (lane & 7) * LD + (lane >> 3) * 8);
 #pragma unroll
-      for (int rr = 0; rr < kWarpRows; ++rr) {
-        float vf[DPL];
-        load_bf16<DPL>(vs + rr * LD + lane * DPL, vf);
+      for (int dq = 0; dq < HD / 32; ++dq) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, v_lane + dq * 64);
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-          if (g < G) {
-            const float pr = sm.p[warp][g][rr];
-#pragma unroll
-            for (int i = 0; i < DPL; ++i) acc[g][i] = fmaf(pr, vf[i], acc[g][i]);
-          }
-        }
+        for (int j = 0; j < 4; ++j) mma_bf16_k8(acc[4 * dq + j], pfrag, vb[j]);
       }
     } else {
+      __syncwarp();
       // PV in f32: lane's dims of the warp's 8 value rows
       float vf[kWarpRows][DPL];
 #pragma unroll
@@ -539,11 +605,24 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
     l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
   }
   __syncthreads();  // the merge buffers overlay every warp's ring
+  if constexpr (kLean) {
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g)
-    if (g < G)
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      if (n < G)
+        *reinterpret_cast<float2*>(&sm.merge.acc[warp][n][nt * 8 + kq]) =
+            make_float2(acc[nt][0], acc[nt][1]);
+      if constexpr (HPL > 1)
+        if (n + 8 < G)
+          *reinterpret_cast<float2*>(&sm.merge.acc[warp][n + 8][nt * 8 + kq]) =
+              make_float2(acc[nt][2], acc[nt][3]);
+    }
+  } else {
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) sm.merge.acc[warp][g][lane * DPL + i] = acc[g][i];
+    for (int g = 0; g < MAXG; ++g)
+      if (g < G)
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) sm.merge.acc[warp][g][lane * DPL + i] = acc[g][i];
+  }
   if (kq == 0) {
 #pragma unroll
     for (int j = 0; j < HPL; ++j) {

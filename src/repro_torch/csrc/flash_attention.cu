@@ -22,7 +22,14 @@
 // hd = 128, bf16) a launch moves 9-21 MB of q, k, v and o and does ~1-3
 // GFLOP of causal products: ~3-10 us of bytes against ~1-4 us of bf16
 // tensor-core operations, so the bytes bound it and the tiles sit close to
-// the ridge; a long prompt (S = 4096) is bound by the operations.
+// the ridge; a long prompt (S = 4096) is bound by the operations, and so
+// is whisper-small's encoder (hd 64, R = 4, S = 1500, non-causal: 28.0 us
+// of products); phi-3-vision's prompt (hd 96, R = 4, S = 640) by the bytes
+// (18.8 us). At hd 64 a second bound sits beside the products': one exp2
+// a score on the special-function units, 16 a clock an SM, is 25.8 us at
+// the encoder's shape and the card's top clock. One warpgroup a block runs
+// a tile's q.K^T, softmax and PV in series, so neither bound is reached:
+// the blocks an SM overlap only each other's chains (PERF.md).
 //
 // Grid: one block of 4 warps per (query head, batch row, 64-row query
 // tile), each warp 16 query rows. The query tile is the slowest grid
@@ -53,25 +60,38 @@
 //   warp: the diagonal tile, a window edge, the ragged last tile).
 // * The output is staged through the warp's own rows of the q buffer and
 //   written with 16-byte coalesced stores.
-// * hd 128 (the serving models), flash_bf16_wgmma_kernel: one warpgroup
-//   runs q.K^T as wgmma with q and K in shared memory, and PV as wgmma
-//   with P in registers and V read transposed from shared memory; tiles
-//   are kept in wgmma's 128-byte-swizzle layout (conflict-free for the
-//   copies and the output staging). 168 registers, 66,560 bytes of shared
-//   memory: 3 blocks an SM. The same design on mma.sync with ldmatrix
-//   fragments (below) was ~1.4x slower at hd 128 on an H100: every warp
-//   read the whole K and V tile from shared memory for its 16 rows, and
-//   those reads, not the products or the exponentials, set its pace.
-// * hd 32 and 64 (reduced configs), 96, 192 and 256 (phi-3-vision,
-//   nemotron-4, recurrentgemma), flash_bf16_kernel: mma.sync m16n8k16,
-//   fragments by ldmatrix.x4 (.trans for V) from rows padded to hd + 8
-//   elements (the 8 row addresses of each 8x8 matrix fall on 8 disjoint
-//   groups of 4 banks at every one of these hd). The f32 output tile of a
-//   warp's 16 rows is hd / 2 registers a thread (128 at hd 256), so the
-//   blocks an SM the launch bounds ask for fall with hd: 3 up to hd 128, 2
-//   at hd 192 and 1 at hd 256 (255 registers a thread, no spill; shared
-//   memory of 53, 102 and 135 KB allows the same). Any GQA group: a block
-//   reads the KV head of its query head.
+// * hd 64, 96 and 128 (whisper-small, phi-3-vision, the serving models),
+//   flash_bf16_wgmma_kernel<HD>: one warpgroup runs q.K^T as wgmma with q
+//   and K in shared memory, and PV as wgmma with P in registers and V read
+//   transposed from shared memory; tiles are kept in wgmma's
+//   128-byte-swizzle layout (conflict-free for the copies and the output
+//   staging). hd 128: two atoms a tile, 168 registers, 66,560 bytes of
+//   shared memory, 3 blocks an SM. hd 64: one atom a tile (a 128-byte
+//   row), a 32-register accumulator, 125 registers and 33,792 bytes: 4
+//   blocks an SM (asking for 5 caps the kernel at 96 registers and
+//   spills). hd 96: a 192-byte row is 1.5 atoms, so the tile takes the
+//   hd-128 layout with columns 96-127 written as zeros (cp.async with a
+//   source size of 0: no bytes read); q.K^T steps over the 6 real chunks
+//   only, PV runs N = 128 and its 32 extra output columns are never
+//   stored: the HBM bytes are hd 96's, the PV products a third more (the
+//   reference pads every head dim to 128, src/repro/kernels/ops.py:86-94);
+//   168 registers, 3 blocks an SM. The same design on mma.sync with
+//   ldmatrix fragments (below) was ~1.4x slower at hd 128 on an H100 and
+//   1.14x / 1.25x slower at hd 96 / 64: every warp read the whole K and V
+//   tile from shared memory for its 16 rows, and those reads, not the
+//   products or the exponentials, set its pace.
+// * hd 32 (reduced configs), 192 and 256 (nemotron-4, recurrentgemma),
+//   flash_bf16_kernel: mma.sync m16n8k16, fragments by ldmatrix.x4 (.trans
+//   for V) from rows padded to hd + 8 elements (the 8 row addresses of each
+//   8x8 matrix fall on 8 disjoint groups of 4 banks at every one of these
+//   hd). The f32 output tile of a warp's 16 rows is hd / 2 registers a
+//   thread (128 at hd 256), so the blocks an SM the launch bounds ask for
+//   fall with hd: 3 at hd 32, 2 at hd 192 and 1 at hd 256 (246 registers a
+//   thread, no spill: the copies' offsets are recomputed for each tile
+//   rather than held; shared memory of 102 and 135 KB allows the same).
+//   One warpgroup's wgmma tile at hd 256 would need 128 accumulator
+//   registers a thread; that shape waits for a two-consumer design. Any
+//   GQA group: a block reads the KV head of its query head.
 // flash_attention_tiled_plain (same Python module) is this tile loop in
 // PyTorch, and the tests hold both kernels to it.
 //
@@ -205,9 +225,14 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
   constexpr int LD = HD + 8;
   if (vec) {
     constexpr int kChunks = HD / 8;  // 16-byte chunks per row
+    // the thread index through an empty asm: each call recomputes the
+    // copies' offsets, which the compiler would otherwise hoist out of the
+    // tile loop and hold (2 x 16 of 64 bits at hd 256, past 255 registers)
+    unsigned tid = threadIdx.x;
+    asm volatile("" : "+r"(tid));
 #pragma unroll
     for (int it = 0; it < kBlockK * kChunks / kThreads; ++it) {
-      const int i = it * kThreads + threadIdx.x;
+      const unsigned i = it * kThreads + tid;
       const int r = i / kChunks, c = (i % kChunks) * 8;
       const bool in = r < rows;
       cp_async16(smem_addr(dst + r * LD + c),
@@ -300,6 +325,7 @@ constexpr size_t smem_bf16() {
 }
 
 // resident blocks an SM that flash_bf16_kernel's launch bounds ask for
+// (hd 32, 192, 256; the other head dims run the wgmma kernel)
 template <int HD>
 struct Bf16Occupancy {
   static constexpr int kBlocks = HD <= 128 ? 3 : (HD <= 192 ? 2 : 1);
@@ -454,40 +480,52 @@ __global__ void __launch_bounds__(kThreads, Bf16Occupancy<HD>::kBlocks)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, hd 128 (the serving head dim): wgmma
+// bf16, hd 64, 96 and 128: wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kAtom = 64 * 128;     // bytes of a swizzle atom: 64 rows x 128 B
-constexpr int kTileW = 2 * kAtom;   // bytes of a 64 x 128 bf16 tile
+constexpr int kAtom = 64 * 128;  // bytes of a swizzle atom: 64 rows x 128 B
 
-// Byte offset of 16-byte chunk c (0..15) of row r (0..63) of a 64 x 128
-// bf16 tile kept as wgmma's canonical 128-byte-swizzle layout: columns
-// 0-63 in atom 0, 64-127 in atom 1, each row 128 B, chunk c of an atom at
-// chunk c ^ (r % 8). The 8 rows of a 1024-byte group cover all 32 banks for
-// any chunk, so a quarter-warp's 16-byte accesses never conflict.
+// Byte offset of 16-byte chunk c (0..15) of row r (0..63) of a 64 x 64 or
+// 64 x 128 bf16 tile kept as wgmma's canonical 128-byte-swizzle layout:
+// columns 0-63 in atom 0, 64-127 in atom 1, each row 128 B, chunk c of an
+// atom at chunk c ^ (r % 8). The 8 rows of a 1024-byte group cover all 32
+// banks for any chunk, so a quarter-warp's 16-byte accesses never conflict.
 __device__ __forceinline__ int sw128(int r, int c) {
   return (c >> 3) * kAtom + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
-// 64 rows of 128 bf16 into the swizzled layout; rows at and past `rows`
-// are zero. vec: 16-byte cp.async (the caller commits and waits).
+// Columns of the staged wgmma tile: one 128-byte atom at hd 64, two at hd 96
+// and 128 (hd 96 takes the hd-128 layout, columns 96-127 zero).
+template <int HD>
+struct WgmmaTile {
+  static constexpr int kCols = HD <= 64 ? 64 : 128;
+  static constexpr int kBytes = 64 * kCols * 2;  // 64 rows
+};
+
+// 64 rows of HD bf16 into the swizzled layout of WgmmaTile<HD>; rows at and
+// past `rows`, and columns HD to kCols - 1, are zero. vec: 16-byte cp.async
+// (the caller commits and waits); a source size of 0 writes the zeros.
+template <int HD>
 __device__ __forceinline__ void stage_sw128(unsigned char* dst,
                                             const __nv_bfloat16* src,
                                             int64_t row_stride, int rows,
                                             int vec) {
+  constexpr int kChunks = WgmmaTile<HD>::kCols / 8;  // 16-byte chunks a row
   if (vec) {
 #pragma unroll
-    for (int it = 0; it < 64 * 16 / kThreads; ++it) {
-      const int i = it * kThreads + threadIdx.x, r = i >> 4, c = i & 15;
-      const bool in = r < rows;
+    for (int it = 0; it < 64 * kChunks / kThreads; ++it) {
+      const unsigned i = it * kThreads + threadIdx.x;
+      const int r = i / kChunks, c = i % kChunks;
+      const bool in = r < rows && c < HD / 8;
       cp_async16(smem_addr(dst + sw128(r, c)),
                  src + (in ? r * row_stride + c * 8 : 0), in ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < 64 * 128; i += kThreads) {
-      const int r = i >> 7, col = i & 127;
+    for (unsigned i = threadIdx.x; i < 64 * kChunks * 8; i += kThreads) {
+      const int r = i / (kChunks * 8), col = i % (kChunks * 8);
       reinterpret_cast<__nv_bfloat16*>(dst + sw128(r, col >> 3))[col & 7] =
-          r < rows ? src[r * row_stride + col] : __float2bfloat16(0.f);
+          r < rows && col < HD ? src[r * row_stride + col]
+                               : __float2bfloat16(0.f);
     }
   }
 }
@@ -550,6 +588,28 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[8][4], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 64 f32) += A (registers, mma.sync's A layout per warp) x B (smem,
+// MN-major)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[8][4], uint32_t const (&a)[4], uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 // d (64 x 128 f32) += A (registers, mma.sync's A layout per warp) x B (smem,
 // MN-major)
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[16][4], uint32_t const (&a)[4], uint64_t desc_b,
@@ -583,19 +643,34 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[16][4], uint32_t 
 }
 
 // One warpgroup per (query head, batch row, 64-row query tile). q and the
-// K/V ring live in the swizzled layout; q.K^T is 8 wgmma m64n64k16 with both
-// operands in shared memory, PV 4 wgmma m64n128k16 with P from registers
-// and V read transposed from shared memory. The tensor cores read each K/V
-// fragment once for the 64 rows, where ldmatrix has every warp read the
-// whole tile. The softmax, masks and output staging are those of the
-// mma.sync kernel (same accumulator layout per warp).
-constexpr size_t kSmemWgmma = 1024 + (1 + kSlots) * kTileW;  // + alignment
+// K/V ring live in the swizzled layout; q.K^T is HD/16 wgmma m64n64k16 with
+// both operands in shared memory, PV 4 wgmma m64nNk16 (N = 64 at hd 64, 128
+// at hd 96 and 128) with P from registers and V read transposed from shared
+// memory. The tensor cores read each K/V fragment once for the 64 rows,
+// where ldmatrix has every warp read the whole tile. The softmax, masks and
+// output staging are those of the mma.sync kernel (same accumulator layout
+// per warp). At hd 96 the q.K^T steps over the zero columns are skipped;
+// PV's 32 extra output columns are computed and never stored.
+template <int HD>
+constexpr size_t smem_wgmma() {
+  return 1024 + (1 + kSlots) * WgmmaTile<HD>::kBytes;  // + alignment
+}
 
-__global__ void __launch_bounds__(kThreads, 3) flash_bf16_wgmma_kernel(Args a) {
-  constexpr int HD = 128;
+// resident blocks an SM that flash_bf16_wgmma_kernel's launch bounds ask
+// for: the hd-64 tile's accumulator is 32 registers a thread, not 64
+template <int HD>
+struct WgmmaOccupancy {
+  static constexpr int kBlocks = HD <= 64 ? 4 : 3;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, WgmmaOccupancy<HD>::kBlocks)
+    flash_bf16_wgmma_kernel(Args a) {
+  constexpr int kCols = WgmmaTile<HD>::kCols, kTileB = WgmmaTile<HD>::kBytes;
+  static_assert(HD == 64 || HD == 96 || HD == 128, "wgmma head dims");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* ring = q_s + kTileW;  // kSlots tiles
+  unsigned char* ring = q_s + kTileB;  // kSlots tiles
 
   int q0, h, b;
   block_coords(q0, h, b);
@@ -616,18 +691,18 @@ __global__ void __launch_bounds__(kThreads, 3) flash_bf16_wgmma_kernel(Args a) {
   // prologue: q with the first K tile (one group), the first V tile (the
   // next); slots: K_j in ks, V_j in vs, the third is free
   int ks = 0, vs = 1, fs = 2;
-  stage_sw128(q_s, qp + q0 * a.q_ss, a.q_ss, a.S - q0, a.vec);
-  stage_sw128(ring, kp + lo * kBlockK * a.k_ss, a.k_ss, a.S - lo * kBlockK,
-              a.vec);
+  stage_sw128<HD>(q_s, qp + q0 * a.q_ss, a.q_ss, a.S - q0, a.vec);
+  stage_sw128<HD>(ring, kp + lo * kBlockK * a.k_ss, a.k_ss,
+                  a.S - lo * kBlockK, a.vec);
   cp_async_commit();
-  stage_sw128(ring + kTileW, vp + lo * kBlockK * a.v_ss, a.v_ss,
-              a.S - lo * kBlockK, a.vec);
+  stage_sw128<HD>(ring + kTileB, vp + lo * kBlockK * a.v_ss, a.v_ss,
+                  a.S - lo * kBlockK, a.vec);
   cp_async_commit();
   const uint32_t q_addr = smem_addr(q_s), ring_addr = smem_addr(ring);
 
-  float o[HD / 8][4];
+  float o[kCols / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
+  for (int nt = 0; nt < kCols / 8; ++nt)
     o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
   float m0 = kMasked2, m1 = kMasked2, l0 = 0.f, l1 = 0.f;  // l: lane partial
   const float scale2 = a.scale * kLog2e;
@@ -639,10 +714,10 @@ __global__ void __launch_bounds__(kThreads, 3) flash_bf16_wgmma_kernel(Args a) {
     fence_proxy_async();
     __syncthreads();     // ... for every thread; every warp is done with V_{j-1}
 
-    // scores: the warpgroup's 64 rows x 64 keys, 8 depth steps of 16; the
-    // next K tile's copies are issued while the tensor cores run
+    // scores: the warpgroup's 64 rows x 64 keys, HD/16 depth steps of 16;
+    // the next K tile's copies are issued while the tensor cores run
     float s[8][4];
-    const uint32_t k_addr = ring_addr + ks * kTileW;
+    const uint32_t k_addr = ring_addr + ks * kTileB;
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < HD / 16; ++kc) {
@@ -652,13 +727,13 @@ __global__ void __launch_bounds__(kThreads, 3) flash_bf16_wgmma_kernel(Args a) {
     }
     wgmma_commit();
     if (kt < hi)
-      stage_sw128(ring + fs * kTileW, kp + (k0 + kBlockK) * a.k_ss, a.k_ss,
-                  a.S - k0 - kBlockK, a.vec);
+      stage_sw128<HD>(ring + fs * kTileB, kp + (k0 + kBlockK) * a.k_ss,
+                      a.k_ss, a.S - k0 - kBlockK, a.vec);
     cp_async_commit();
     wgmma_wait_all();
     pin(s);
 
-    softmax_tile<HD>(a, s, o, k0, w_lo, row0, t4, scale2, m0, m1, l0, l1);
+    softmax_tile<kCols>(a, s, o, k0, w_lo, row0, t4, scale2, m0, m1, l0, l1);
 
     cp_async_wait<1>();  // V_j landed for this thread; K_{j+1} may not
     fence_proxy_async();
@@ -668,7 +743,7 @@ __global__ void __launch_bounds__(kThreads, 3) flash_bf16_wgmma_kernel(Args a) {
     // are the A fragment of key chunk kc (registers a wgmma reads stay
     // untouched until it completes); the next V tile's copies are issued
     // while the tensor cores run
-    const uint32_t v_addr = ring_addr + vs * kTileW;
+    const uint32_t v_addr = ring_addr + vs * kTileB;
     uint32_t pa[4][4];
 #pragma unroll
     for (int kc = 0; kc < kBlockK / 16; ++kc) {
@@ -680,13 +755,17 @@ __global__ void __launch_bounds__(kThreads, 3) flash_bf16_wgmma_kernel(Args a) {
     pin(o);
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kBlockK / 16; ++kc)
-      wgmma_m64n128k16_rs(o, pa[kc],
-                          sw128_desc(v_addr + kc * 16 * 128, kAtom, 1024), 1);
+    for (int kc = 0; kc < kBlockK / 16; ++kc) {
+      const uint64_t desc = sw128_desc(v_addr + kc * 16 * 128, kAtom, 1024);
+      if constexpr (kCols == 64)
+        wgmma_m64n64k16_rs(o, pa[kc], desc, 1);
+      else
+        wgmma_m64n128k16_rs(o, pa[kc], desc, 1);
+    }
     wgmma_commit();
     if (kt < hi)
-      stage_sw128(ring + ks * kTileW, vp + (k0 + kBlockK) * a.v_ss, a.v_ss,
-                  a.S - k0 - kBlockK, a.vec);
+      stage_sw128<HD>(ring + ks * kTileB, vp + (k0 + kBlockK) * a.v_ss,
+                      a.v_ss, a.S - k0 - kBlockK, a.vec);
     cp_async_commit();
     wgmma_wait_all();
     pin(o);
@@ -705,8 +784,8 @@ __global__ void __launch_bounds__(kThreads, 3) flash_bf16_wgmma_kernel(Args a) {
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
 
-  // stage the warp's 16 output rows in its own rows of q_s (swizzled as q),
-  // then write them with 16-byte stores
+  // stage the warp's 16 output rows (the HD real columns) in its own rows
+  // of q_s (swizzled as q), then write them with 16-byte stores
   __syncthreads();  // every warp's products are done with q_s
   const int r0 = warp * 16 + g;
 #pragma unroll
@@ -717,11 +796,13 @@ __global__ void __launch_bounds__(kThreads, 3) flash_bf16_wgmma_kernel(Args a) {
         __floats2bfloat162_rn(o[nt][2] / d1, o[nt][3] / d1);
   }
   __syncwarp();
+  constexpr int kChunks = HD / 8;
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
                        ((int64_t)b * a.S * a.H + h) * HD;
 #pragma unroll
-  for (int it = 0; it < 16 * 16 / 32; ++it) {
-    const int i = it * 32 + lane, r = i >> 4, c = i & 15;
+  for (int it = 0; it < 16 * kChunks / 32; ++it) {
+    const unsigned i = it * 32 + lane;
+    const int r = i / kChunks, c = i % kChunks;
     if (w_lo + r < a.S)
       *reinterpret_cast<uint4*>(out + (int64_t)(w_lo + r) * a.H * HD + c * 8) =
           *reinterpret_cast<const uint4*>(q_s + sw128(warp * 16 + r, c));
@@ -891,6 +972,10 @@ cudaError_t opt_in(size_t smem) {
   return e;
 }
 
+// bf16 head dims on the wgmma kernel; the others run flash_bf16_kernel
+template <int HD>
+constexpr bool kWgmmaHd = HD == 64 || HD == 96 || HD == 128;
+
 template <void (*Kernel)(Args)>
 int launch(size_t smem, dim3 grid, cudaStream_t stream, const Args& a) {
   const cudaError_t e = opt_in<Kernel>(smem);
@@ -905,8 +990,9 @@ int launch_hd(int dtype, int B, cudaStream_t stream, const Args& a) {
   if (dtype == 0)
     return launch<flash_f32_kernel<HD>>(smem_f32<HD>(), grid, stream, a);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if constexpr (HD == 128)
-    return launch<flash_bf16_wgmma_kernel>(kSmemWgmma, grid, stream, a);
+  if constexpr (kWgmmaHd<HD>)
+    return launch<flash_bf16_wgmma_kernel<HD>>(smem_wgmma<HD>(), grid, stream,
+                                               a);
   else
     return launch<flash_bf16_kernel<HD>>(smem_bf16<HD>(), grid, stream, a);
 }
@@ -924,10 +1010,15 @@ int blocks_per_sm(size_t smem) {
 template <int HD>
 int blocks_per_sm_hd(int dtype) {
   if (dtype == 0) return blocks_per_sm<flash_f32_kernel<HD>>(smem_f32<HD>());
-  if constexpr (HD == 128)
-    return blocks_per_sm<flash_bf16_wgmma_kernel>(kSmemWgmma);
+  if constexpr (kWgmmaHd<HD>)
+    return blocks_per_sm<flash_bf16_wgmma_kernel<HD>>(smem_wgmma<HD>());
   else
     return blocks_per_sm<flash_bf16_kernel<HD>>(smem_bf16<HD>());
+}
+
+template <int HD>
+int kernel_of_hd(int dtype) {
+  return dtype == 0 ? 0 : dtype != 1 ? -1 : kWgmmaHd<HD> ? 2 : 1;
 }
 
 }  // namespace
@@ -961,6 +1052,19 @@ extern "C" int flash_attention_launch(
   }
 }
 
+// The kernel that (dtype, hd) launches: 0 = flash_f32_kernel, 1 =
+// flash_bf16_kernel (mma.sync), 2 = flash_bf16_wgmma_kernel; -1: not taken.
+extern "C" int flash_attention_kernel_of(int dtype, int hd) {
+  switch (hd) {
+    case 32: return kernel_of_hd<32>(dtype);
+    case 64: return kernel_of_hd<64>(dtype);
+    case 96: return kernel_of_hd<96>(dtype);
+    case 128: return kernel_of_hd<128>(dtype);
+    case 192: return kernel_of_hd<192>(dtype);
+    case 256: return kernel_of_hd<256>(dtype);
+    default: return -1;
+  }
+}
 
 // Resident blocks an SM for the kernel of (dtype, hd), from the occupancy
 // calculator (registers, shared memory, threads); -1 on error.

@@ -87,7 +87,8 @@ def decode_attention_paged_plain(q: torch.Tensor, k_pool: torch.Tensor,
 def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                  v_cache: torch.Tensor, pos_q: torch.Tensor,
                                  pos_cache: torch.Tensor, *, split_rows: int,
-                                 window: Optional[int] = None
+                                 window: Optional[int] = None,
+                                 p_dtype: torch.dtype = torch.float32
                                  ) -> torch.Tensor:
     """The CUDA kernel's split-context algorithm in plain PyTorch (the
     tests use it; the main path does not). Same arguments and result as
@@ -97,9 +98,13 @@ def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
     split computes its partial (m, l, acc) over its own rows only, with the
     finite -1e30 fill for masked scores; the partials merge as
     M = max m_s, out = sum e^(m_s - M) acc_s / max(sum e^(m_s - M) l_s,
-    1e-30). Probabilities stay f32 for the PV sum. On a slot whose entries
-    are all masked every split has m = -1e30 and weight 1, so the result is
-    the mean of the T value rows, as in the unsplit version."""
+    1e-30). The split's unnormalised probabilities P = e^(s - m_s) are
+    rounded to ``p_dtype`` before the PV sum (l sums them unrounded): f32
+    as in the Pallas body and the kernel's f32 and non-lean bf16 instances,
+    bf16 as the lean instances feed P to the tensor cores (see
+    :func:`lean_instance`). On a slot whose entries are all masked every
+    split has m = -1e30 and weight 1, so the result is the mean of the T
+    value rows, as in the unsplit version."""
     if split_rows < 1:
         raise ValueError(f"split_rows must be positive, got {split_rows}")
     b, _, h, d = q.shape
@@ -120,7 +125,7 @@ def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
         p = torch.exp(s - m[..., None])
         ms.append(m)
         ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bkgt,btkd->bkgd", p,
+        accs.append(torch.einsum("bkgt,btkd->bkgd", p.to(p_dtype).float(),
                                  v_cache[:, t0:t1].float()))
     m = torch.stack(ms)  # (splits, B, K, G)
     w = torch.exp(m - m.amax(dim=0))
@@ -135,6 +140,14 @@ def supports(hd: int, group: int) -> bool:
     per KV head (dense and paged, float32 and bfloat16); the wrappers raise
     on anything else and never fall back to the plain version."""
     return hd in HEAD_DIMS and 1 <= group <= MAX_GROUP
+
+
+def lean_instance(hd: int, group: int) -> bool:
+    """True where the bf16 kernel runs a "lean" instance (kMaxG * hd/32 >
+    32, kMaxG the least of 8 and 16 that holds the group): its PV product
+    runs on the tensor cores with the unnormalised P rounded to bf16."""
+    max_g = 8 if group <= 8 else MAX_GROUP
+    return max_g * (hd // 32) > 32
 
 
 def split_rows_for(b: int, num_kv: int, t: int, sms: int,

@@ -170,6 +170,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_blocks_per_sm.argtypes = [i, i]
         lib.flash_attention_blocks_per_sm.restype = ctypes.c_int
+        lib.flash_attention_kernel_of.argtypes = [i, i]
+        lib.flash_attention_kernel_of.restype = ctypes.c_int
         _argtypes_set = True
     return lib
 
@@ -182,6 +184,20 @@ def blocks_per_sm(dtype: torch.dtype, hd: int) -> int:
         raise RuntimeError(f"flash_attention: no occupancy for {dtype}, "
                            f"hd {hd}")
     return n
+
+
+_KERNELS = ("flash_f32_kernel", "flash_bf16_kernel",
+            "flash_bf16_wgmma_kernel")
+
+
+def kernel_of(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a (dtype, hd) call launches, as the library routes it:
+    bf16 hd 64, 96 and 128 run ``flash_bf16_wgmma_kernel``, bf16 hd 32, 192
+    and 256 ``flash_bf16_kernel`` (mma.sync), f32 ``flash_f32_kernel``."""
+    n = _lib().flash_attention_kernel_of(_DTYPES[dtype], hd)
+    if n < 0:
+        raise ValueError(f"flash_attention: no kernel for {dtype}, hd {hd}")
+    return _KERNELS[n]
 
 
 def supports(hd: int, group: int) -> bool:

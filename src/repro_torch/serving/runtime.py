@@ -30,6 +30,7 @@ import dataclasses
 import heapq
 import itertools
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Protocol, Tuple
 
@@ -40,7 +41,7 @@ from repro_torch.config import (ClusterTopology, ModelConfig, ResilienceConfig,
 from repro_torch.core.request import Job, Outcome, Request, RequestRecord
 from repro_torch.core.scheduler import MoAOffScheduler
 from repro_torch.serving import cost_model as cm
-from repro_torch.serving.engine import MigrationError, SlotPayload
+from repro_torch.serving.engine import MigrationError, SlotPayload, _weak_hook
 from repro_torch.serving.faults import FaultPlan, WireChaos
 from repro_torch.serving.health import HealthMonitor, retry_backoff_s
 from repro_torch.serving.prefix import (ParkedSession, PrefixStore, SessionStore,
@@ -217,6 +218,9 @@ class ClusterRuntime:
         }
         backend.bind(self)
         self.handlers.update(backend.handlers())
+        # through weak references: the table keeps neither its runtime nor
+        # the backend alive (a dropped server frees its engines at once)
+        self.handlers = {k: _weak_hook(fn) for k, fn in self.handlers.items()}
 
     # ------------------------------------------------------------------
 
@@ -1672,7 +1676,7 @@ class LiveBackend:
         # snapshot/replay discipline is replica-granular: (tier, replica)
         self._snapshots: Dict[Tuple[str, int], dict] = {}
         self._since_snap: Dict[Tuple[str, int], List[Job]] = {}
-        self.rt: Optional[ClusterRuntime] = None
+        self._rt: Optional[weakref.ref] = None
         self._chaos = fail_rate > 0  # snapshot discipline needed?
         self._idle_cap_s = 0.0
         for tier, pool in self.pools.items():
@@ -1681,8 +1685,13 @@ class LiveBackend:
                             self._make_on_warm(tier),
                             self._make_on_park(tier))
 
+    @property
+    def rt(self) -> Optional[ClusterRuntime]:
+        # weak: the runtime holds its backend, not the other way round
+        return self._rt() if self._rt is not None else None
+
     def bind(self, runtime: ClusterRuntime) -> None:
-        self.rt = runtime
+        self._rt = weakref.ref(runtime)
         # snapshot/replay discipline is paid whenever faults can consume
         # the snapshots: a Bernoulli fail_rate OR plan crash windows
         self._chaos = self.fail_rate > 0 or (
@@ -1743,7 +1752,12 @@ class LiveBackend:
     # -- engine callbacks ---------------------------------------------------
 
     def _make_on_admit(self, tier: str):
+        backend = weakref.ref(self)  # an engine's hook keeps no backend alive
+
         def on_admit(rid: int, t: float):
+            self = backend()
+            if self is None:
+                return
             job = self._inflight[tier].get(rid)
             if job is not None and not job.in_service:
                 job.in_service = True
@@ -1751,7 +1765,12 @@ class LiveBackend:
         return on_admit
 
     def _make_on_warm(self, tier: str):
+        backend = weakref.ref(self)  # an engine's hook keeps no backend alive
+
         def on_warm(rid: int, kind: str, cached: int, suffix: int):
+            self = backend()
+            if self is None:
+                return
             job = self._inflight[tier].get(rid)
             if job is None or job.record.done:
                 return
@@ -1762,7 +1781,12 @@ class LiveBackend:
         return on_warm
 
     def _make_on_park(self, tier: str):
+        backend = weakref.ref(self)  # an engine's hook keeps no backend alive
+
         def on_park(rid: int, sid: str):
+            self = backend()
+            if self is None:
+                return
             job = self._inflight[tier].get(rid)
             if job is None or job.record.done:
                 return  # a losing hedge twin parking late: rows kept, no mark
@@ -1770,10 +1794,14 @@ class LiveBackend:
         return on_park
 
     def _make_on_token(self, tier: str):
+        backend = weakref.ref(self)  # an engine's hook keeps no backend alive
         first_down = {t.name: cm.downlink_seconds(1, t)
                       for t in self.topology.tiers}
 
         def on_token(rid: int, token: int, t: float):
+            self = backend()
+            if self is None:
+                return
             job = self._inflight[tier].get(rid)
             if job is None or job.record.done:
                 return

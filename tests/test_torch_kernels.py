@@ -19,10 +19,10 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     MIN_SPLIT_ROWS, decode_attention_cuda, decode_attention_paged_cuda,
-    decode_attention_split_plain, split_rows_for)
+    decode_attention_split_plain, lean_instance, split_rows_for)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BLOCK_K, BLOCK_Q, _tile_range, blocks_per_sm, flash_attention_cuda,
-    flash_attention_plain, flash_attention_tiled_plain)
+    flash_attention_plain, flash_attention_tiled_plain, kernel_of)
 from repro_torch.kernels.image_complexity import (  # noqa: E402
     SCORE_KEYS, image_complexity_cuda, image_stats_banded_plain,
     image_stats_cuda, image_stats_grid, image_stats_plain)
@@ -322,6 +322,65 @@ def test_split_rows_for_fills_the_grid(b, kh, t, sms, page):
     assert rows == MIN_SPLIT_ROWS or (rows // 2) * -(-2 * sms // (b * kh)) < t
     if page is not None:
         assert rows % page == 0 or page % rows == 0
+
+
+def _lean_inputs(rng, h, kh, hd, t, ring_last):
+    """Three slots over a T-row cache: slot 0 filled to T - 10, slot 1 a
+    wrapped ring (position p at row p % T up to ``ring_last``, the query
+    there), slot 2 all masked (every entry empty)."""
+    q, kc, vc, pq, pos = _dense_inputs(rng, 3, t, h, kh, hd, t - 10)
+    p = np.arange(ring_last - t + 1, ring_last + 1)
+    pos[1, p % t] = p
+    pq[1] = ring_last
+    pos[2] = -1
+    return q, kc, vc, pq, pos
+
+
+def test_lean_instances_are_the_wide_ones():
+    """The bf16 kernel's lean instances (PV on the tensor cores, P rounded
+    to bf16): kMaxG * hd/32 > 32."""
+    lean = {(hd, g) for hd in (32, 64, 96, 128, 192, 256)
+            for g in (1, 8, 9, 16) if lean_instance(hd, g)}
+    assert lean == {(96, 9), (96, 16), (128, 9), (128, 16), (192, 1),
+                    (192, 8), (192, 9), (192, 16), (256, 1), (256, 8),
+                    (256, 9), (256, 16)}
+
+
+@pytest.mark.parametrize("p_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [8, 16])
+@pytest.mark.parametrize("hd", [128, 192, 256])
+def test_decode_split_plain_p_dtype_matches_xla(hd, group, p_dtype):
+    """The lean instances' arithmetic (``decode_attention_split_plain`` with
+    the split's unnormalised P rounded to ``p_dtype``) against JAX's XLA
+    path, over a filled slot, a wrapped ring and an all-masked slot under a
+    window of 100, in splits of 32 rows. f32: inputs and P in f32, 2e-5
+    (summation order and the split merge differ). bf16: inputs rounded to
+    bf16 on both sides, 2e-2, the kernels' bf16 tolerance: both round P to
+    bf16, at different scales (XLA the normalised weights), and both round
+    the output to bf16 (one ulp of a value in [1, 2) is 2^-7)."""
+    rng = np.random.default_rng(hd + group)
+    q, kc, vc, pq, pos = _lean_inputs(rng, 2 * group, 2, hd, 160, 290)
+    if p_dtype == "bfloat16":
+        jx = [jnp.asarray(x, jnp.bfloat16) for x in (q, kc, vc)]
+        tx = [torch.as_tensor(x).to(torch.bfloat16) for x in (q, kc, vc)]
+        tol = 2e-2
+    else:
+        jx, tx, tol = [jnp.asarray(x) for x in (q, kc, vc)], [
+            torch.as_tensor(x) for x in (q, kc, vc)], 2e-5
+    want = _np(jattn.decode_attention_xla(*jx, jnp.asarray(pq),
+                                          jnp.asarray(pos), window=100))
+    args = (*tx, torch.as_tensor(pq), torch.as_tensor(pos))
+    got = decode_attention_split_plain(*args, window=100, split_rows=32,
+                                       p_dtype=getattr(torch, p_dtype))
+    assert got.dtype == tx[0].dtype
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    if p_dtype == "float32":  # the default is f32 P, bit for bit
+        assert torch.equal(got, decode_attention_split_plain(
+            *args, window=100, split_rows=32))
+        mean_v = vc[2].mean(axis=0)  # (K, hd): the all-masked slot
+        np.testing.assert_allclose(got[2, 0].numpy().reshape(2, group, hd),
+                                   np.repeat(mean_v[:, None], group, axis=1),
+                                   rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -732,6 +791,19 @@ FLASH_TILED_CASES = {
     "non-causal hd 64 unaligned q": (2, 200, 8, 2, 64, False, None,
                                      "unaligned"),
     "q (B,H,S,hd) view S=272": (1, 272, 12, 2, 128, True, None, "bhsd"),
+    # hd 64 (one 128-byte atom a tile) and hd 96 (the hd-128 tile, columns
+    # 96-127 zero) on the wgmma kernel
+    "hd 64 causal R=4 S=320": (4, 320, 12, 12, 64, True, None, "contiguous"),
+    "hd 64 non-causal S=1500": (1, 1500, 12, 12, 64, False, None,
+                                "contiguous"),
+    "hd 64 window 40 ragged S=300": (2, 300, 8, 2, 64, True, 40,
+                                     "contiguous"),
+    "hd 64 unaligned q S=97": (2, 97, 4, 2, 64, True, None, "unaligned"),
+    "hd 96 causal R=2 S=640": (2, 640, 32, 32, 96, True, None, "contiguous"),
+    "hd 96 non-causal S=200": (2, 200, 8, 8, 96, False, None, "contiguous"),
+    "hd 96 window 64 ragged S=97": (2, 97, 4, 4, 96, True, 64, "contiguous"),
+    "hd 96 unaligned q": (2, 100, 4, 2, 96, True, None, "unaligned"),
+    "hd 96 q (B,H,S,hd) view S=160": (2, 160, 8, 2, 96, True, None, "bhsd"),
 }
 
 
@@ -763,10 +835,11 @@ def test_flash_kernel_matches_tiled_plain(cuda, case):
 
 
 @pytest.mark.gpu
-def test_flash_kernel_captures_in_cuda_graph(cuda):
+@pytest.mark.parametrize("hd", [128, 64, 96])
+def test_flash_kernel_captures_in_cuda_graph(cuda, hd):
     """The launch records into a CUDA graph (the shared-memory opt-in is
     made once, outside any stream work); a replay equals an eager call."""
-    q, k, v = _flash_cuda_inputs(cuda, torch.bfloat16, 4, 320, 28, 4, 128,
+    q, k, v = _flash_cuda_inputs(cuda, torch.bfloat16, 4, 320, 28, 4, hd,
                                  "contiguous", 15)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -782,11 +855,23 @@ def test_flash_kernel_captures_in_cuda_graph(cuda):
     assert torch.equal(out, flash_attention_cuda(q, k, v))
 
 
+# the blocks an SM that flash_bf16_wgmma_kernel's launch bounds ask for
+# (WgmmaOccupancy in the source): at hd 96 and 128 a 64-register output
+# accumulator (168 registers a thread) and 66,560 bytes of shared memory;
+# at hd 64 a 32-register accumulator and 33,792 bytes
+WGMMA_BLOCKS_AN_SM = {64: 4, 96: 3, 128: 3}
+
+
 @pytest.mark.gpu
-def test_flash_bf16_kernel_holds_three_blocks_an_sm(cuda):
-    """168 registers and 66,560 bytes of shared memory (q and three K/V
-    tile slots) leave room for 3 blocks of 4 warps."""
-    assert blocks_per_sm(torch.bfloat16, 128) >= 3
+@pytest.mark.parametrize("hd", sorted(WGMMA_BLOCKS_AN_SM))
+def test_flash_bf16_kernel_holds_three_blocks_an_sm(cuda, hd):
+    """bf16 hd 64, 96 and 128 run the wgmma kernel, with at least the
+    blocks an SM its launch bounds ask for; the other head dims run the
+    mma.sync kernel."""
+    assert kernel_of(torch.bfloat16, hd) == "flash_bf16_wgmma_kernel"
+    assert blocks_per_sm(torch.bfloat16, hd) >= WGMMA_BLOCKS_AN_SM[hd]
+    for other in (32, 192, 256):
+        assert kernel_of(torch.bfloat16, other) == "flash_bf16_kernel"
 
 
 # (b, h, kh, hd, t, fill, window, all-masked last slot, live rows, page,
@@ -887,3 +972,65 @@ def test_decode_kernels_capture_in_cuda_graph(cuda, layout):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, fn(*args))
+
+
+# the lean bf16 decode instances (PV on the tensor cores) at the zoo's wide
+# shapes: (hd, query heads, KV heads, window)
+LEAN_DECODE_CASES = {
+    "hd128 group 16 (qwen3-moe)": (128, 64, 4, None),
+    "hd192 group 12 (nemotron-4)": (192, 96, 8, None),
+    "hd256 group 16, window (recurrentgemma)": (256, 16, 1, 100),
+}
+
+# a lean instance against its split mirror with P rounded to bf16: the
+# kernel rounds P at its warp's running max, the mirror at the split's, so
+# they differ by one bf16 ulp of the output where the f32 results round
+# apart plus P's two roundings: 8e-3, as for flash's tile loop
+LEAN_TOL = 8e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "paged", "unaligned"])
+@pytest.mark.parametrize("case", list(LEAN_DECODE_CASES))
+def test_decode_lean_kernel_matches_plain_and_mirror(cuda, case, layout):
+    """A filled slot, a wrapped ring and an all-masked slot (mean(V)) in
+    bf16, against the plain version (2e-2) and the bf16-P split mirror
+    (LEAN_TOL), over the rows a split the wrapper chooses; "unaligned":
+    a dense cache whose rows start off 16 bytes (element copies)."""
+    hd, h, kh, window = LEAN_DECODE_CASES[case]
+    assert lean_instance(hd, h // kh)
+    rng = np.random.default_rng(hd + h)
+    t, page = 160, 16
+    q, kc, vc, pq, pos = _lean_inputs(rng, h, kh, hd, t, 290)
+    dev = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+    q, kc, vc = (dev(x).to(torch.bfloat16) for x in (q, kc, vc))
+    pq, pos = dev(pq), dev(pos)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if layout != "paged":
+        if layout == "unaligned":  # odd offset, row stride hd + 1
+            kc, vc = (torch.cat([x[..., :1], x], dim=-1)[..., 1:]
+                      for x in (kc, vc))
+        got = decode_attention_cuda(q, kc, vc, pq, pos, window=window)
+        rows = split_rows_for(3, kh, t, sms)
+    else:  # the same rows behind a shuffled page table over a pool
+        n_pg = t // page
+        perm = torch.as_tensor(rng.permutation(3 * n_pg) + 1, device=cuda)
+        pages = perm.reshape(3, n_pg).to(torch.int32)
+        pool = [torch.zeros((3 * n_pg + 1, page, kh, hd), dtype=torch.bfloat16,
+                            device=cuda) for _ in range(2)]
+        for x, pl in zip((kc, vc), pool):
+            pl[pages.long()] = x.reshape(3, n_pg, page, kh, hd)
+        got = decode_attention_paged_cuda(q, *pool, pages, pq, pos,
+                                          window=window)
+        rows = split_rows_for(3, kh, t, sms, page)
+    want = tref.decode_attention_ref(q, kc, vc, pq, pos, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    mirror = decode_attention_split_plain(q, kc, vc, pq, pos, window=window,
+                                          split_rows=rows,
+                                          p_dtype=torch.bfloat16)
+    torch.testing.assert_close(got.float(), mirror.float(), rtol=LEAN_TOL,
+                               atol=LEAN_TOL)
+    row = got[2, 0].float().reshape(kh, h // kh, hd)
+    mean_v = vc[2].float().mean(dim=0)[:, None].expand_as(row)
+    torch.testing.assert_close(row, mean_v, rtol=2e-2, atol=2e-2)

@@ -133,3 +133,38 @@ def test_launcher_refuses_unported_flags(capsys, flag):
     assert "ROADMAP" not in out and "served 4 requests" in out
     for line in lines:
         assert line in out
+
+
+@pytest.mark.parametrize("options", [{}, {"sessions": True}])
+def test_a_dropped_cluster_server_frees_its_engines_without_the_cycle_collector(
+        options):
+    """The live backend's engine hooks, its link to the runtime and the
+    runtime's handler table hold weak references: with ``gc`` disabled,
+    dropping the last reference to a server that has served two requests
+    frees its runtime, backend, pools, engines and their caches at once."""
+    import gc
+    import weakref
+
+    from repro_torch.serving.tiers import build_cluster_engines
+
+    topo = get_topology("edge-cloud")
+    engines = build_cluster_engines(topo, ServingConfig(
+        max_batch=2, max_seq=128, paged=True, kv_page_size=16,
+        prefix_cache_mb=4.0), device="cpu")
+    gc.collect()
+    gc.disable()
+    try:
+        server = ClusterServer(engines, topology=topo, **options)
+        del engines
+        (text, img), = _launcher_mix(1)
+        server.submit(text, image=img, max_new=3)
+        server.submit("hello there, friend.", max_new=3)
+        assert [len(r.tokens) for r in server.run(timeout_s=120.0)] == [3, 3]
+        alive = [weakref.ref(x) for x in (server.runtime, server.backend,
+                                          *server.pools.values())]
+        for eng in server.engines.values():
+            alive += [weakref.ref(eng), weakref.ref(eng.cache["blocks"]["k"])]
+        del server, eng
+        assert [r() is None for r in alive] == [True] * len(alive)
+    finally:
+        gc.enable()

@@ -154,6 +154,21 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      decode_32k with --moe-2d, each record printed (per-device FLOPs,
      argument, collective and HBM bytes, the H100 data-sheet roofline,
      the cell's wall). No hand kernel may launch on a mesh;
+  15. the card against the JAX package itself, from its results recorded
+     on the CPU (tests/data/jax_reference.json and .npz, read with numpy
+     and repro_torch only; ``repro_torch.replay``): (a) each kernel against
+     the recorded Pallas output at tests/test_kernels.py's tolerances
+     (histogram exact, a fully masked decode slot against the recorded XLA
+     output), the largest error printed per kernel and dtype; (b) every
+     arch of the zoo, reduced f32 with the record's drawn weights, on
+     engines under attn_impl and decode_impl "cuda" (TF32 off), paged and
+     dense, fused 1 and 8 steps: tokens exactly JAX's (a miss prints the
+     request, the step and JAX's margin there); (c) the edge-cloud
+     ClusterServer case with the fused image kernel scoring: routes, tiers
+     and tokens equal JAX's; (d) each recorded JAX slot injected into a
+     paged and a dense engine finishes with JAX's tokens. Each case must
+     have launched its kernels (ssm none of the attention kernels; encdec
+     and hybrid the dense decode kernel only);
   7. ``python -m repro_torch.launch.serve --requests 4 --max-new 4``, then
      with ``--sessions 2 --turns 2 --prefix-cache-mb 64 --migrate``, which
      must print its ``sessions:`` line (phase 8 (d)), with ``--speculate
@@ -162,7 +177,8 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      phase 9 (d)). Phase 7 runs last.
 
 The line before the last is the kernels' JSON record (launches: phases 4,
-5, 8, 9, 10, 11 and 12 together, phases 13 and 14 launching none; each attention
+5, 8, 9, 10, 11, 12 and 15 (b)-(d) together, phases 13 and 14 launching
+none; each attention
 kernel's zoo shapes timed under "shapes", and every (dtype, hd, group)
 held in phase 3 with its worst error under "instantiations"); the last
 line is ``{"ok": true, "device": {...}}``.
@@ -3772,6 +3788,208 @@ def phase_distribution(procs):
     print(f"  phase 14 wall {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the card against the JAX package's record
+# ---------------------------------------------------------------------------
+
+ATTENTION = ("flash_attention", "decode_attention", "decode_attention_paged")
+
+
+def _launched(before):
+    """Kernel launches since ``before`` (an ``ops.launches()`` reading)."""
+    from repro_torch.kernels import ops
+
+    return {k: n - before[k] for k, n in ops.launches().items()}
+
+
+def _case_launch_faults(label, family, paged, got, prefill=True):
+    """What a model case on the card must have launched: an ssm none of the
+    attention kernels; every other family the flash kernel (when it
+    prefilled) and the decode kernel of its cache, the paged one only for
+    the attention families (dense, vlm, moe) on a paged pool (hybrid and
+    encdec caches stay dense there); no image kernel."""
+    want = {name: 0 for name in ATTENTION + ("image_stats",)}
+    if family != "ssm":
+        want["flash_attention"] = 1 if prefill else 0
+        on_pages = paged and family in ("dense", "vlm", "moe")
+        want["decode_attention_paged" if on_pages else "decode_attention"] = 1
+    faults = [f"{name}: {got[name]} (want {'>= 1' if n else 0})"
+              for name, n in want.items()
+              if (n and got[name] < 1) or (not n and got[name])]
+    return [f"{label}: {', '.join(faults)}"] if faults else []
+
+
+def reference_kernels(meta, arrays):
+    """15 (a): each kernel on the card against the recorded Pallas output at
+    tests/test_kernels.py's tolerances (histogram exact; a fully masked
+    decode slot against the recorded XLA output). Comparison launches: not
+    added to the kernels line, as phase 3's are not."""
+    from repro_torch import replay
+    from repro_torch.kernels import ops
+
+    worst, faults, counts = {}, [], {}
+    for case in meta["kernels"]:
+        before = ops.launches()
+        got = replay.run_kernel(case, replay.kernel_inputs(case, arrays),
+                                "cuda")
+        n = _launched(before)[case["kernel"]]
+        counts[case["kernel"]] = counts.get(case["kernel"], 0) + n
+        if n != 1:
+            faults.append(f"{case['id']}: {n} launches of {case['kernel']}")
+        err, bad = replay.hold_kernel(case, got, arrays)
+        faults += bad
+        key = (case["kernel"], case.get("dtype", "float32"))
+        worst[key] = max(worst.get(key, 0.0), err)
+    for (kernel, dtype), err in sorted(worst.items()):
+        what = ("relative error of the sums, histogram equal"
+                if kernel == "image_stats" else "max |err|")
+        print(f"  (a) {kernel} {dtype}: {what} {err:.3g} against the "
+              f"recorded Pallas output")
+    print(f"  (a) {len(meta['kernels'])} cases, launches {counts}")
+    if faults:
+        fail("phase 15 (a): " + "; ".join(faults))
+
+
+def reference_engines(meta):
+    """15 (b): every arch's engine case on the card (reduced f32, attn_impl
+    and decode_impl "cuda", the record's drawn weights) under each variant
+    must decode JAX's tokens exactly; a miss names the request, the step
+    and JAX's margin there."""
+    import torch
+
+    from repro_torch import replay
+    from repro_torch.kernels import ops
+
+    totals, faults = {}, []
+    for case in meta["engines"]:
+        arch = case["arch"]
+        model = replay.build(arch, "cuda")
+        params = replay.params_for(meta, arch, "cuda")
+        n_tok, launched = 0, {}
+        for variant, (paged, _) in replay.VARIANTS.items():
+            before = ops.launches()
+            got = replay.run_engine(case, variant, model, params, "cuda")
+            torch.cuda.synchronize()
+            d = _launched(before)
+            miss = replay.first_mismatch(got, case["tokens"][variant],
+                                         case["margins"])
+            if miss:
+                print(f"  (b) MISMATCH {arch} {variant}: {miss}")
+                faults.append(f"{arch} {variant}")
+            faults += _case_launch_faults(f"{arch} {variant}",
+                                          model.cfg.family, paged, d)
+            n_tok += sum(len(t) for t in got.values())
+            for k, n in d.items():
+                launched[k] = launched.get(k, 0) + n
+                totals[k] = totals.get(k, 0) + n
+        same = not any(f.startswith(arch) for f in faults)
+        print(f"  (b) {arch}: {n_tok} tokens over 4 variants "
+              f"{'==' if same else '!='} JAX (smallest JAX margin "
+              f"{case['min_margin']}); launches "
+              f"{ {k: n for k, n in launched.items() if n} }")
+        del model, params
+    if faults:
+        fail("phase 15 (b): " + "; ".join(faults))
+    return totals
+
+
+def reference_cluster(meta, arrays):
+    """15 (c): the edge-cloud ClusterServer case on the card (the fused
+    image-statistics kernel scoring): routes, tiers and tokens equal JAX's;
+    one image launch a request, flash and paged decode launched."""
+    from repro_torch import replay
+    from repro_torch.kernels import ops
+
+    before = ops.launches()
+    got = replay.run_cluster(meta, arrays, "cuda")
+    d = _launched(before)
+    want = meta["cluster"]["results"]
+    faults = []
+    if sorted(got) != sorted(int(r) for r in want):
+        faults.append(f"rids {sorted(got)} != {sorted(want)}")
+    for rid, r in sorted(got.items()):
+        w = want.get(str(rid), {})
+        same = (not r["failed"] and r["routes"] == w.get("routes")
+                and r["tier"] == w.get("tier")
+                and r["tokens"] == w.get("tokens"))
+        print(f"  (c) rid {rid}: routes {r['routes']} tier {r['tier']} "
+              f"tokens {r['tokens']} {'==' if same else '!='} JAX")
+        if not same:
+            faults.append(f"rid {rid}: card {r} != JAX {w}")
+    n_img = len(meta["cluster"]["requests"])
+    if d["image_stats"] != n_img:
+        faults.append(f"image_stats launched {d['image_stats']} times for "
+                      f"{n_img} image requests")
+    for name in ("flash_attention", "decode_attention_paged"):
+        if d[name] < 1:
+            faults.append(f"{name} never launched")
+    print(f"  (c) launches {d}")
+    if faults:
+        fail("phase 15 (c): " + "; ".join(faults))
+    return d
+
+
+def reference_wire(meta, arrays):
+    """15 (d): each recorded JAX slot injected into a paged and a dense
+    engine on the card finishes with JAX's tokens, with no prefill."""
+    import torch
+
+    from repro_torch import replay
+    from repro_torch.kernels import ops
+
+    totals, faults = {}, []
+    for case in meta["wire"]:
+        family = replay.reduced_cfg(case["arch"]).family
+        for paged in (True, False):
+            label = f"{case['arch']} {'paged' if paged else 'dense'}"
+            before = ops.launches()
+            toks, prefilled = replay.run_wire(meta, arrays, case, paged,
+                                              "cuda")
+            torch.cuda.synchronize()
+            d = _launched(before)
+            same = toks == case["tokens"] and prefilled == 0
+            print(f"  (d) {label}: {case['nbytes']} wire bytes, tokens "
+                  f"{toks} {'==' if same else '!='} JAX {case['tokens']}"
+                  f" (prefill tokens {prefilled})")
+            if not same:
+                faults.append(label)
+            faults += _case_launch_faults(label, family, paged, d,
+                                          prefill=False)
+            for k, n in d.items():
+                totals[k] = totals.get(k, 0) + n
+    if faults:
+        fail("phase 15 (d): " + "; ".join(faults))
+    return totals
+
+
+def phase_reference(records):
+    """Phase 15: the card against the JAX package's results recorded on the
+    CPU (tests/data/jax_reference.*), read with numpy and repro_torch
+    only. Launches of (b)-(d) join the kernels line."""
+    import torch
+
+    from repro_torch import replay
+
+    t0 = time.perf_counter()
+    meta, arrays = replay.load(ROOT)
+    print(f"  record: {len(meta['kernels'])} kernel cases, "
+          f"{len(meta['engines'])} archs x {len(replay.VARIANTS)} engine "
+          f"variants, {len(meta['cluster']['requests'])} cluster requests, "
+          f"{len(meta['wire'])} wire slots (JAX {meta['versions']['jax']})")
+    reference_kernels(meta, arrays)
+    t1 = time.perf_counter()
+    added = {}
+    for d in (reference_engines(meta), reference_cluster(meta, arrays),
+              reference_wire(meta, arrays)):
+        for k, n in d.items():
+            added[k] = added.get(k, 0) + n
+    for name, n in added.items():
+        records[name]["launches"] = records[name].get("launches", 0) + n
+    torch.cuda.empty_cache()
+    print(f"  phase 15 launches (b)-(d) {added}; (a) {t1 - t0:.1f}s, "
+          f"phase 15 wall {time.perf_counter() - t0:.1f}s")
+
+
 def phase_launcher():
     """The launcher's default run, then its warm-serving and migration
     flags (phase 8 (d)), which must print the ``sessions:`` line, then
@@ -3810,7 +4028,7 @@ def phase_launcher():
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--parent-csrc", default=None,
                     help="a directory with another tree's attention kernel "
@@ -3896,6 +4114,13 @@ def main() -> None:
               "and the meshed qwen2-vl-2b trainer on a one-rank NCCL mesh, "
               "elastic restore, the dry-run on the host)")
         phase_distribution(dryruns)
+    if 15 in phases:
+        if 3 not in phases:
+            fail("phase 15 records launches into phase 3's kernel records")
+        print("phase 15: the card against the JAX package's recorded "
+              "results (kernels, every arch's tokens, the cluster's routes, "
+              "JAX slots on the wire)")
+        phase_reference(records)
     if 7 in phases:
         print("phase 7: launcher")
         phase_launcher()

@@ -5,10 +5,12 @@ so conversion is a copy: nested dicts of numpy arrays (for example
 ``jax.device_get(model.init(PRNGKey(i)))``) become nested dicts of tensors
 on ``device``, or DTensors on a mesh laid out by the logical-axis rules
 (``params_on_mesh``). Only the input is numpy; this module imports no JAX.
+``draw_params`` makes such a tree from a seed, so that both packages can
+hold the same weights without either one's random stream.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, Mapping, Sequence, Union
 
 import numpy as np
 import torch
@@ -37,6 +39,39 @@ def params_from_numpy(tree: Dict[str, Any],
     """JAX parameter tree (numpy leaves) -> port parameters on ``device``,
     every float leaf cast to ``dtype``."""
     return _tree(tree, torch.device(device), dtype)
+
+
+def draw_params(leaf_specs: Sequence[Mapping[str, Any]],
+                seed: int) -> Dict[str, Any]:
+    """Weights drawn by numpy from ``seed``, as a nested tree of float32
+    numpy leaves in the JAX package's layout: the same tree feeds JAX
+    (``jax.tree_util.tree_unflatten`` on its init's treedef) and the port
+    (``params_from_numpy``), so both packages hold the same weights bit for
+    bit without committing any.
+
+    ``leaf_specs`` lists the leaves in ``tree_flatten_with_path`` order, each
+    a mapping with ``name`` (the checkpointer's dotted path), ``shape`` and
+    the ``mean``, ``std``, ``min`` and ``max`` of the JAX package's own init
+    of that leaf. Each leaf is ``rng.standard_normal(shape)`` scaled to that
+    mean and std (in float64), clipped to [min, max], then cast to float32;
+    a leaf whose std is 0 (a norm scale of ones, a zero bias) is exactly
+    its mean and draws nothing."""
+    rng = np.random.default_rng(seed)
+    tree: Dict[str, Any] = {}
+    for spec in leaf_specs:
+        shape = tuple(int(d) for d in spec["shape"])
+        if spec["std"] == 0.0:
+            leaf = np.full(shape, spec["mean"], np.float32)
+        else:
+            z = rng.standard_normal(shape)
+            leaf = np.clip(spec["mean"] + spec["std"] * z, spec["min"],
+                           spec["max"]).astype(np.float32)
+        *parents, last = spec["name"].split(".")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
 
 
 def cache_from_numpy(tree: Dict[str, Any],

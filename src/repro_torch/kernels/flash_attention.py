@@ -30,6 +30,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: query rows and key rows of the kernel's tiles (``kBlockQ``/``kBlockK``)
 BLOCK_Q = BLOCK_K = 64
+#: query rows a block of ``flash_bf16_ws_kernel`` (``kWsBlockQ``: two
+#: consumer warpgroups of 64 rows each over shared K/V tiles)
+WS_BLOCK_Q = 128
 #: the bf16 kernel's softmax runs in base 2: scores scaled by hd^-0.5 *
 #: log2(e), masked scores and the running max start at -1e30 * log2(e)
 LOG2E = math.log2(math.e)
@@ -113,7 +116,13 @@ def flash_attention_tiled_plain(q: torch.Tensor, k: torch.Tensor,
     m' = max(m, max t), l' = l 2^(m - m') + sum 2^(t - m'), acc' =
     acc 2^(m - m') + P V with P = 2^(t - m') rounded to ``p_dtype`` (the
     kernel feeds bf16 P to the tensor cores; l sums the unrounded P). The
-    output is acc / max(l, 1e-30) in q's dtype."""
+    output is acc / max(l, 1e-30) in q's dtype.
+
+    The mirror computes 2^x exactly. ``flash_bf16_ws_kernel`` (bf16 hd 192
+    and 256) takes ``ex2.approx.ftz`` instead: 2 ulp, and a weight below
+    2^-126 of its row's largest flushes to 0. The other kernels use exact
+    exp2f. The difference stays inside the 8e-3 that the card holds the
+    kernel to its mirror."""
     b, s, h, kh, hd = _check_shapes(q, k, v, window)
     g = h // kh
     f32 = torch.float32
@@ -165,35 +174,66 @@ def _lib() -> ctypes.CDLL:
     lib = runtime.load("flash_attention")
     if not _argtypes_set:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.flash_attention_launch.argtypes = (
-            [i] + [p] * 4 + [i] * 7 + [i64] * 9 + [ctypes.c_float, i, p])
+        args = [i] + [p] * 4 + [i] * 7 + [i64] * 9 + [ctypes.c_float, i, p]
+        lib.flash_attention_launch.argtypes = args
         lib.flash_attention_launch.restype = ctypes.c_int
-        lib.flash_attention_blocks_per_sm.argtypes = [i, i]
+        lib.flash_attention_launch_as.argtypes = [i] + args
+        lib.flash_attention_launch_as.restype = ctypes.c_int
+        lib.flash_attention_blocks_per_sm.argtypes = [i, i, i]
         lib.flash_attention_blocks_per_sm.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [i, i, i]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_int
         lib.flash_attention_kernel_of.argtypes = [i, i]
         lib.flash_attention_kernel_of.restype = ctypes.c_int
         _argtypes_set = True
     return lib
 
 
+_KERNELS = ("flash_f32_kernel", "flash_bf16_kernel",
+            "flash_bf16_wgmma_kernel", "flash_bf16_ws_kernel")
+
+
+def _kernel_id(kernel: Optional[str]) -> int:
+    if kernel is None:
+        return -1
+    if kernel not in _KERNELS:
+        raise ValueError(f"flash_attention: no kernel {kernel!r}")
+    return _KERNELS.index(kernel)
+
+
+def tiles(kernel: str) -> tuple:
+    """(block_q, block_k) of ``kernel``'s tile loop: the arguments under
+    which :func:`flash_attention_tiled_plain` mirrors it."""
+    _kernel_id(kernel)
+    return (WS_BLOCK_Q if kernel == "flash_bf16_ws_kernel" else BLOCK_Q,
+            BLOCK_K)
+
+
 def blocks_per_sm(dtype: torch.dtype, hd: int) -> int:
     """Resident blocks an SM of the kernel for (dtype, hd), from the CUDA
     occupancy calculator on the current device."""
-    n = _lib().flash_attention_blocks_per_sm(_DTYPES[dtype], hd)
+    n = _lib().flash_attention_blocks_per_sm(_DTYPES[dtype], hd, -1)
     if n < 0:
         raise RuntimeError(f"flash_attention: no occupancy for {dtype}, "
                            f"hd {hd}")
     return n
 
 
-_KERNELS = ("flash_f32_kernel", "flash_bf16_kernel",
-            "flash_bf16_wgmma_kernel")
+def smem_bytes(dtype: torch.dtype, hd: int) -> int:
+    """Dynamic shared memory a launch of the kernel for (dtype, hd) asks
+    for, in bytes."""
+    n = _lib().flash_attention_smem_bytes(_DTYPES[dtype], hd, -1)
+    if n < 0:
+        raise ValueError(f"flash_attention: no kernel for {dtype}, hd {hd}")
+    return n
 
 
 def kernel_of(dtype: torch.dtype, hd: int) -> str:
     """The kernel a (dtype, hd) call launches, as the library routes it:
-    bf16 hd 64, 96 and 128 run ``flash_bf16_wgmma_kernel``, bf16 hd 32, 192
-    and 256 ``flash_bf16_kernel`` (mma.sync), f32 ``flash_f32_kernel``."""
+    bf16 hd 64, 96 and 128 run ``flash_bf16_wgmma_kernel``, bf16 hd 192 and
+    256 ``flash_bf16_ws_kernel`` (warp-specialised: two consumer
+    warpgroups over TMA-fed K/V tiles), bf16 hd 32 ``flash_bf16_kernel``
+    (mma.sync), f32 ``flash_f32_kernel``."""
     n = _lib().flash_attention_kernel_of(_DTYPES[dtype], hd)
     if n < 0:
         raise ValueError(f"flash_attention: no kernel for {dtype}, hd {hd}")
@@ -212,6 +252,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: Optional[int] = None) -> torch.Tensor:
     """Kernel launch. q, k and v may be strided views with unit stride on
     hd; the output is a new contiguous (B, S, H, hd) tensor."""
+    return _launch(q, k, v, causal, window, None)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: Optional[int], kernel: Optional[str]) -> torch.Tensor:
+    """:func:`flash_attention_cuda`'s body. ``kernel`` None takes the
+    route; a name pins another kernel the head dim is built for
+    (``flash_bf16_ws_kernel`` at bf16 hd 128, off the route: a timing
+    record only), and the library refuses one it does not have."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"{name} must lie on q's CUDA device "
@@ -230,17 +279,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    # 16-byte vector loads need every row start 16-byte aligned
+    # 16-byte vector loads and TMA need every row start 16-byte aligned
+    # (and so every stride a multiple of 16 bytes)
     per16 = 16 // q.element_size()
     vec = all(x.data_ptr() % 16 == 0
               and all(st % per16 == 0 for st in x.stride()[:3])
               for x in (q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib().flash_attention_launch(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, s, h, kh, hd, int(causal),
-        0 if window is None else int(window),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(hd ** -0.5), int(vec), stream)
+    args = (_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, s, h, kh, hd, int(causal),
+            0 if window is None else int(window),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(hd ** -0.5), int(vec), stream)
+    lib = _lib()
+    err = (lib.flash_attention_launch(*args) if kernel is None
+           else lib.flash_attention_launch_as(_kernel_id(kernel), *args))
     runtime.check(err, "flash_attention")
     return out

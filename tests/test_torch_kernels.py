@@ -866,12 +866,13 @@ WGMMA_BLOCKS_AN_SM = {64: 4, 96: 3, 128: 3}
 @pytest.mark.parametrize("hd", sorted(WGMMA_BLOCKS_AN_SM))
 def test_flash_bf16_kernel_holds_three_blocks_an_sm(cuda, hd):
     """bf16 hd 64, 96 and 128 run the wgmma kernel, with at least the
-    blocks an SM its launch bounds ask for; the other head dims run the
-    mma.sync kernel."""
+    blocks an SM its launch bounds ask for; hd 192 and 256 run the
+    warp-specialised kernel and hd 32 the mma.sync one."""
     assert kernel_of(torch.bfloat16, hd) == "flash_bf16_wgmma_kernel"
     assert blocks_per_sm(torch.bfloat16, hd) >= WGMMA_BLOCKS_AN_SM[hd]
-    for other in (32, 192, 256):
-        assert kernel_of(torch.bfloat16, other) == "flash_bf16_kernel"
+    assert kernel_of(torch.bfloat16, 32) == "flash_bf16_kernel"
+    for other in (192, 256):
+        assert kernel_of(torch.bfloat16, other) == "flash_bf16_ws_kernel"
 
 
 # (b, h, kh, hd, t, fill, window, all-masked last slot, live rows, page,

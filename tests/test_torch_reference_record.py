@@ -19,7 +19,8 @@ What is recorded:
   dense and paged decode at hd 32/64/128, groups 1/2/4, a window, a ragged
   context and a fully masked slot (whose XLA output is recorded beside the
   kernel's); flash at S 64 and 128 (block-aligned, as the Pallas kernel
-  needs), hd 32/64/128, causal, bidirectional and windowed;
+  needs), hd 32/64/128, causal, bidirectional and windowed, and hd 192/256
+  (the reference pads both to 256) on one head, causal and windowed;
 * (b) every arch of ``ALL_ARCHS``, reduced, in f32, on a JAX ``TierEngine``
   (``attn_impl="auto"``, the default decode) paged and dense, fused 1 and
   8 steps, over weights drawn by numpy (``convert.draw_params``) to the
@@ -84,7 +85,8 @@ MARGIN_RULE = {"min_margin": 1e-4, "first_seed": 0, "max_seeds": 64}
 
 
 def _attention_cases():
-    """Flash: B=1, S 64/128 (one Pallas block), hd 32/64/128, groups 1-2;
+    """Flash: B=1, S 64/128 (one Pallas block), hd 32/64/128, groups 1-2,
+    and hd 192/256 on one head;
     dense and paged decode: hd 32/64/128, groups 1/2/4, a window, a ragged
     paged context (40 rows in three 16-row pages) and fully masked slots."""
     flash = [  # (s, hd, h, kh, causal, window)
@@ -120,6 +122,19 @@ def _attention_cases():
                 if kind == "decode_attention_paged":
                     case["page"] = 16
                 cases.append(case)
+    # the head dims of the warp-specialised bf16 flash kernel (one head: the
+    # record stays under its 1 MiB cap), appended so that the seeds above
+    # keep their cases
+    wide = [  # (dtype, s, hd, causal, window)
+        ("bfloat16", 128, 192, True, None), ("bfloat16", 128, 192, True, 48),
+        ("bfloat16", 128, 256, True, None), ("bfloat16", 128, 256, True, 48),
+        ("float32", 64, 192, True, None), ("float32", 64, 256, True, 40)]
+    for dtype, s, hd, causal, window in wide:
+        mode = "window" if window else "causal"
+        cases.append({"id": f"flash/{dtype}/s{s}_hd{hd}_g1_{mode}",
+                      "kernel": "flash_attention", "dtype": dtype, "b": 1,
+                      "s": s, "hd": hd, "h": 1, "kh": 1, "causal": causal,
+                      "window": window})
     for i, case in enumerate(cases):
         case["seed"] = 100 + i
     return cases

@@ -71,6 +71,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.config import ModelConfig, ServingConfig
 from repro_torch.serving.paged import PagePool, pages_needed
 from repro_torch.serving.prefix import (ParkedSession, PrefixStore,
@@ -433,6 +434,8 @@ class TierEngine:
         self.serving = serving
         self.eos_id = eos_id
         self.temp = sample_temp
+        # the tier this engine serves, as its server names it (on spans)
+        self.tier = ""
         self.fused_steps = max(1, serving.fused_steps)
         if serving.decode_impl != "auto":
             model.decode_impl = serving.decode_impl
@@ -590,6 +593,11 @@ class TierEngine:
         slot's full row (entries past a prompt carry pos=-1), and the
         engine picks ``teff`` above the longest position the block
         reaches."""
+        sp = tracing.begin("engine.decode_block", tier=self.tier)
+        if sp:
+            slots = [(int(rids[i]), int(positions[i]), int(budgets[i]))
+                     for i in np.flatnonzero(np.asarray(budgets) > 0)]
+        issue = tracing.begin("engine.decode.issue", tier=self.tier)
         model, params, cache = self.model, self.params, self.cache
         max_seq = int(self.serving.max_seq)
         ctx = teff if teff < max_seq else None
@@ -649,7 +657,14 @@ class TierEngine:
             tok, pos, alive = tok2, pos2, alive2
             out.append(tok2)
         self.cache = cache
-        return torch.stack(out, dim=1).cpu().numpy()
+        block = torch.stack(out, dim=1)
+        tracing.end(issue)
+        sync = tracing.begin("engine.decode.sync", tier=self.tier)
+        block = block.cpu().numpy()
+        tracing.end(sync)
+        if sp:
+            tracing.end(sp, k=k_steps, teff=teff, slots=slots)
+        return block
 
     def _prefill_insert(self, batch: Dict[str, torch.Tensor],
                         slots: np.ndarray, total: np.ndarray,
@@ -1936,6 +1951,8 @@ class TierEngine:
 
     def _admit_group(self, jobs: List[dict], slots: List[int],
                      bucket: int) -> None:
+        sp = tracing.begin("engine.prefill_group", tier=self.tier)
+        stage = tracing.begin("engine.prefill.stage", tier=self.tier)
         r = len(jobs)
         # pad the row count to a power of two as well; pad rows replicate
         # row 0 and scatter to the same slot, so the duplicate writes are
@@ -1961,6 +1978,8 @@ class TierEngine:
             if pages is not None:
                 self._assign_pages(slot, pages)
         slots_arr = np.asarray(slots + [slots[0]] * (rp - r), np.int32)
+        tracing.end(stage)
+        issue = tracing.begin("engine.prefill.issue", tier=self.tier)
         if self._pt is not None:
             # pad rows replicate row 0's page table too
             pt_rows = self._pt[slots_arr]
@@ -1969,9 +1988,18 @@ class TierEngine:
                                           npg)
         else:
             logits = self._prefill_insert(batch, slots_arr, total)
+        tracing.end(issue)
+        sync = tracing.begin("engine.prefill.sync", tier=self.tier)
         logits = logits.float().cpu().numpy()  # one host sync per group
+        tracing.end(sync)
+        start = tracing.begin("engine.prefill.start", tier=self.tier)
         for i, (job, slot) in enumerate(zip(jobs, slots)):
             self._start_seq(job, slot, int(total[i]), logits[i])
+        tracing.end(start)
+        if sp:
+            tracing.end(sp, bucket=bucket, rows_padded=rp, rows=[
+                (j["rid"], len(j["tokens"]), "patches" in j["extras"],
+                 j["t"]) for j in jobs])
 
     # -- sampling / stepping ------------------------------------------------
 
@@ -1995,14 +2023,17 @@ class TierEngine:
 
     def step(self) -> int:
         """Admit + one decode block for all active slots. Returns #active."""
+        sp = tracing.begin("engine.step", tier=self.tier)
         t_in = time.monotonic()
         self._admit()
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
+            tracing.end(sp)
             return 0
         if self.fused_steps <= 1:
             n = self._step_legacy(active)
             self._throttle_sleep(t_in)
+            tracing.end(sp)
             return n
         b = len(self.slots)
         tokens = np.zeros((b,), np.int32)
@@ -2028,6 +2059,7 @@ class TierEngine:
             # smallest bucket covering every position the block can write
             teff = self._context_bucket(int(positions.max()) + k + 1)
         block = self._fused(tokens, positions, budgets, teff, k, rids)
+        emit = tracing.begin("engine.emit", tier=self.tier)
         now = time.monotonic()
         for i in active:
             st = self.slots[i]
@@ -2045,9 +2077,11 @@ class TierEngine:
                         or hit_cap):
                     self._finish_slot(i, now)
                     break
+        tracing.end(emit)
         self.steps += 1
         self.last_heartbeat = now
         self._throttle_sleep(t_in)
+        tracing.end(sp)
         return len(active)
 
     def _step_legacy(self, active: List[int]) -> int:

@@ -84,6 +84,8 @@ class EnginePool:
     def wire_hooks(self, on_admit, on_token, on_warm, on_park) -> None:
         for tr in self.transports:
             tr.wire_hooks(on_admit, on_token, on_warm, on_park)
+            if isinstance(tr, LocalTransport):
+                tr.engine.tier = self.name  # the tier on the engine's spans
 
     def arm_wire_chaos(self, chaos, stats, now_rel) -> None:
         """Arm byzantine message chaos on every replica's event/finish

@@ -36,6 +36,7 @@ from typing import Callable, Dict, List, Optional, Protocol, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.config import (ClusterTopology, ModelConfig, ResilienceConfig,
                           ServingConfig, SpecConfig, TierSpec)
 from repro_torch.core.request import Job, Outcome, Request, RequestRecord
@@ -932,13 +933,33 @@ class ClusterRuntime:
                 if self.t0 is None:
                     self.t0 = ev.t  # epoch anchor for plan/health clocks
                 self.t = ev.t
-                self.handlers[ev.kind](ev)
+                sp = tracing.begin("runtime.event")
+                try:
+                    self.handlers[ev.kind](ev)
+                finally:
+                    if sp:
+                        tracing.end(sp, rid=_event_rid(ev), kind=ev.kind,
+                                    due=ev.t)
                 continue
-            if not self.backend.advance():
+            sp = tracing.begin("runtime.advance")
+            try:
+                busy = self.backend.advance()
+            finally:
+                tracing.end(sp)
+            if not busy:
                 break
         if self.auditor is not None:
             self.auditor.final_check()
         return self.outcomes
+
+
+def _event_rid(ev: Event) -> Optional[int]:
+    """The request an event's payload carries, if any."""
+    req = ev.payload.get("request")
+    if req is None:
+        job = ev.payload.get("job")
+        req = job.request if job is not None else None
+    return req.rid if req is not None else None
 
 
 # ---------------------------------------------------------------------------
@@ -2022,6 +2043,7 @@ class LiveBackend:
         the full prefill; the image is never silently dropped.
         """
         req = job.request
+        sp = tracing.begin("runtime.prepare_prompt", rid=req.rid)
         ids = np.asarray(req.modalities["text"].data, np.int32)
         extras = dict(job.payload.get("extras", {}))
         img = req.modalities.get("image")
@@ -2036,6 +2058,7 @@ class LiveBackend:
         truncated = len(ids) > budget
         if truncated:
             ids = ids[:budget]
+        tracing.end(sp)
         return ids, extras, truncated
 
     # -- fault recovery -----------------------------------------------------
@@ -2423,6 +2446,8 @@ class LiveBackend:
                     dt = min(dt, max(ddl - time.monotonic(), 0.0))
                 cap = self._idle_cap_s
                 if dt > 0:
+                    sp = tracing.begin("runtime.doze")
                     time.sleep(min(dt, cap) if cap > 0 else dt)
+                    tracing.end(sp)
             return True
         return any(self._inflight[t] for t in self._inflight)

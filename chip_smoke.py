@@ -176,12 +176,20 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      arch of the zoo, reduced f32 with the record's drawn weights, on
      engines under attn_impl and decode_impl "cuda" (TF32 off), paged and
      dense, fused 1 and 8 steps: tokens exactly JAX's (a miss prints the
-     request, the step and JAX's margin there); (c) the edge-cloud
+     request, the step and JAX's margin there), the fused blocks of every
+     family but ssm and hybrid replayed from CUDA graphs; (c) the edge-cloud
      ClusterServer case with the fused image kernel scoring: routes, tiers
      and tokens equal JAX's; (d) each recorded JAX slot injected into a
      paged and a dense engine finishes with JAX's tokens. Each case must
      have launched its kernels (ssm none of the attention kernels; encdec
      and hybrid the dense decode kernel only);
+  16. the fused decode block of both Qwen tiers at full width (bf16, paged
+     pool of 32 slots x 4096 rows in pages of 256, every slot live at
+     context 1400, bucket 1536, k 8: the benchmark cell's decode shape),
+     eager (the engine's graphs off) against CUDA graphs on one engine, in
+     turns after two warm blocks each: block time by CUDA events, the host
+     issue time by the engine's span, tokens equal in both modes; then one
+     turn of each under the traced benchmark run's profiler;
   7. ``python -m repro_torch.launch.serve --requests 4 --max-new 4``, then
      with ``--sessions 2 --turns 2 --prefix-cache-mb 64 --migrate``, which
      must print its ``sessions:`` line (phase 8 (d)), with ``--speculate
@@ -2895,15 +2903,19 @@ def phase_zoo_serve(records):
 
 
 class _KernelShapes:
-    """Record the shape of every attention kernel launch while in use: the
-    flash kernel's (hd, group, causal, S) and the dense decode kernel's
-    (hd, group, T, query at 10**9). It wraps the kernel entry points the
-    ``ops`` wrappers call, so the wrappers' launch counts stay theirs."""
+    """Record the shape of every attention kernel launch made eagerly while
+    in use: the flash kernel's (hd, group, causal, S) and the dense decode
+    kernel's (hd, group, T, query at 10**9). It wraps the kernel entry
+    points the ``ops`` wrappers call, so the wrappers' launch counts stay
+    theirs. A CUDA graph capture is not recorded (it reads no device value
+    and launches nothing), nor are its replays, which call no wrapper."""
 
     def __init__(self):
         self.flash, self.decode = {}, {}
 
     def __enter__(self):
+        import torch
+
         from repro_torch.kernels import ops
 
         self._saved = (ops.flash_attention_cuda, ops.decode_attention_cuda)
@@ -2911,6 +2923,8 @@ class _KernelShapes:
 
         def flash_seen(q, k, v, *, causal=True, window=None, **kw):
             out = flash(q, k, v, causal=causal, window=window, **kw)
+            if torch.cuda.is_current_stream_capturing():
+                return out
             key = (q.shape[-1], q.shape[-2] // k.shape[-2], causal,
                    q.shape[1])
             self.flash[key] = self.flash.get(key, 0) + 1
@@ -2918,6 +2932,8 @@ class _KernelShapes:
 
         def decode_seen(q, k, v, pos_q, pos_cache, **kw):
             out = decode(q, k, v, pos_q, pos_cache, **kw)
+            if torch.cuda.is_current_stream_capturing():
+                return out
             key = (q.shape[-1], q.shape[-2] // k.shape[-2], k.shape[1],
                    bool((pos_q >= 10 ** 9).all()))
             self.decode[key] = self.decode.get(key, 0) + 1
@@ -4113,12 +4129,22 @@ def reference_engines(meta):
         arch = case["arch"]
         model = replay.build(arch, "cuda")
         params = replay.params_for(meta, arch, "cuda")
-        n_tok, launched = 0, {}
-        for variant, (paged, _) in replay.VARIANTS.items():
+        n_tok, launched, steps = 0, {}, {"graph": 0, "eager": 0}
+        for variant, (paged, fused) in replay.VARIANTS.items():
             before = ops.launches()
-            got = replay.run_engine(case, variant, model, params, "cuda")
+            stats = {}
+            got = replay.run_engine(case, variant, model, params, "cuda",
+                                    stats)
             torch.cuda.synchronize()
             d = _launched(before)
+            steps["graph"] += stats["graph"]
+            steps["eager"] += stats["eager"]
+            # the fused blocks of the families that write by absolute
+            # position replay CUDA graphs; ssm/hybrid blocks stay eager
+            graphed = fused > 1 and model.cfg.family not in ("ssm", "hybrid")
+            if graphed != (stats["graph"] > 0):
+                faults.append(f"{arch} {variant}: {stats['graph']} graphed "
+                              f"fused steps")
             miss = replay.first_mismatch(got, case["tokens"][variant],
                                          case["margins"])
             if miss:
@@ -4133,7 +4159,8 @@ def reference_engines(meta):
         same = not any(f.startswith(arch) for f in faults)
         print(f"  (b) {arch}: {n_tok} tokens over 4 variants "
               f"{'==' if same else '!='} JAX (smallest JAX margin "
-              f"{case['min_margin']}); launches "
+              f"{case['min_margin']}); fused steps graphed "
+              f"{steps['graph']}, eager {steps['eager']}; launches "
               f"{ {k: n for k, n in launched.items() if n} }")
         del model, params
     if faults:
@@ -4238,6 +4265,139 @@ def phase_reference(records):
           f"phase 15 wall {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the fused decode block, eager against CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: the benchmark cell qwen-vqa-poisson's decode shape: 32 live slots of the
+#: paged pool (4096 rows a slot in pages of 256) at context 1400, so the
+#: block of 8 steps reads the 1536-row bucket
+GRAPH_BLOCK = dict(batch=32, max_seq=4096, page=256, ctx=1400, k=8)
+
+
+def time_decode_block(arch, seed, rounds=3):
+    """One tier's fused block at ``GRAPH_BLOCK``, eager (the engine's graphs
+    off) and graphed on one engine, in turns (eager, graph, graph, eager) x
+    ``rounds`` after two warm blocks each (the graphed warm-up takes the
+    bucket's eager first step and its capture). Each block restarts from
+    the same cache state, so both modes must give the same tokens. Then one
+    more turn of each inside a ``torch.profiler`` session, as a traced
+    benchmark run records. Returns {mode: [(block ms by CUDA events, host
+    issue ms by the engine's ``engine.decode.issue`` span)]} and the
+    engine's graph counters."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tracing
+    from repro_torch.config import ServingConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import TierEngine, _get
+
+    g = GRAPH_BLOCK
+    model = build_model(get_config(arch).replace(dtype="bfloat16"),
+                        attn_impl="cuda", device="cuda")
+    eng = TierEngine(model, model.init(seed), ServingConfig(
+        max_batch=g["batch"], max_seq=g["max_seq"], paged=True,
+        kv_page_size=g["page"], fused_steps=g["k"]), eos_id=-1)
+    b, ctx, k = g["batch"], g["ctx"], g["k"]
+    npg = -(-(ctx + k + 1) // g["page"])
+    cache = eng.cache
+    cache["pages"][:, :npg] = torch.arange(
+        1, 1 + b * npg, dtype=torch.int32, device="cuda").view(b, npg)
+    cache["pos"][:, :ctx] = torch.arange(ctx, dtype=torch.int32,
+                                         device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name in eng._paged_names:
+        _get(cache, name).normal_(generator=gen)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(4, eng.cfg.vocab_size, b).astype(np.int32)
+    positions = np.full((b,), ctx, np.int32)
+    budgets = np.full((b,), 64, np.int32)
+    rids = np.arange(b, dtype=np.int64)
+    teff = eng._context_bucket(ctx + k + 1)
+    if teff != 1536:
+        fail(f"phase 16: context bucket {teff} for {ctx} rows, want 1536")
+
+    def block(graphs):
+        eng._graph_ok = graphs
+        cache["index"].fill_(ctx)
+        tracing.clear()
+        tracing.enable()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = eng._fused(tokens, positions, budgets, teff, k, rids)
+        e1.record()
+        e1.synchronize()
+        tracing.disable()
+        issue = [s for s in tracing.records()
+                 if s.name == "engine.decode.issue"][-1]
+        return out, e0.elapsed_time(e1), (issue.t1_ns - issue.t0_ns) / 1e6
+
+    times = {"eager": [], "graph": []}
+    want = block(False)[0]
+    for graphs in (False, False, True, True):
+        if not np.array_equal(block(graphs)[0], want):
+            fail(f"phase 16 {arch}: a warm {'graphed' if graphs else 'eager'}"
+                 f" block's tokens differ from the first eager block's")
+    steps0 = eng.decode_graph_steps
+    for _ in range(rounds):
+        for graphs in (False, True, True, False):
+            out, ms, issue = block(graphs)
+            if not np.array_equal(out, want):
+                fail(f"phase 16 {arch}: {'graphed' if graphs else 'eager'} "
+                     f"block's tokens differ from the eager block's")
+            times["graph" if graphs else "eager"].append((ms, issue))
+    if eng.decode_graph_steps - steps0 != 2 * rounds * k:
+        fail(f"phase 16 {arch}: {eng.decode_graph_steps - steps0} graphed "
+             f"steps in {2 * rounds} graphed blocks of {k}")
+    # the same turns under the benchmark's traced-run profiler (CUDA
+    # activity only): what it adds to each mode's issue time
+    from torch.profiler import ProfilerActivity, profile
+
+    times.update({"eager profiled": [], "graph profiled": []})
+    with profile(activities=[ProfilerActivity.CUDA]):
+        for graphs in (False, True, True, False):
+            out, ms, issue = block(graphs)
+            times["graph profiled" if graphs else "eager profiled"].append(
+                (ms, issue))
+    counters = (eng.decode_graph_steps, eng.decode_eager_steps,
+                eng.decode_graph_captures)
+    del eng, model
+    torch.cuda.empty_cache()
+    return times, counters
+
+
+def phase_decode_graphs():
+    """Phase 16: the fused decode block of both Qwen tiers at the benchmark
+    cell's shapes, eager against graphed (``time_decode_block``)."""
+    import subprocess as sp
+
+    t0 = time.perf_counter()
+    limit = sp.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"], capture_output=True,
+                   text=True).stdout.strip()
+    g = GRAPH_BLOCK
+    for seed, arch in enumerate(("qwen2-vl-2b", "qwen2.5-vl-7b")):
+        times, (gs, es, caps) = time_decode_block(arch, seed)
+        med = {m: (statistics.median(t[0] for t in v),
+                   statistics.median(t[1] for t in v))
+               for m, v in times.items()}
+        print(f"  {arch} B={g['batch']} ctx {g['ctx']} (bucket 1536) k="
+              f"{g['k']} paged {g['page']}: block eager "
+              f"{med['eager'][0]:.2f} ms ({med['eager'][0] / g['k']:.3f} a "
+              f"step, issue {med['eager'][1]:.2f} ms), graphed "
+              f"{med['graph'][0]:.2f} ms ({med['graph'][0] / g['k']:.3f} a "
+              f"step, issue {med['graph'][1]:.2f} ms), "
+              f"{med['eager'][0] / med['graph'][0]:.2f}x; tokens equal; "
+              f"graph steps {gs}, eager steps {es}, captures {caps} "
+              f"[{limit}]")
+        for m, v in times.items():
+            print(f"    {m}: " + ", ".join(f"{a:.2f}/{i:.2f}" for a, i in v)
+                  + " (block ms / issue ms, in turn order)")
+    print(f"  phase 16 wall {time.perf_counter() - t0:.1f}s")
+
+
 def phase_launcher():
     """The launcher's default run, then its warm-serving and migration
     flags (phase 8 (d)), which must print the ``sessions:`` line, then
@@ -4276,7 +4436,7 @@ def phase_launcher():
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--parent-csrc", default=None,
                     help="a directory with another tree's attention kernel "
@@ -4370,6 +4530,10 @@ def main() -> None:
               "results (kernels, every arch's tokens, the cluster's routes, "
               "JAX slots on the wire)")
         phase_reference(records)
+    if 16 in phases:
+        print("phase 16: the fused decode block at the benchmark cell's "
+              "shapes, eager against CUDA graphs (both Qwen tiers)")
+        phase_decode_graphs()
     if 7 in phases:
         print("phase 7: launcher")
         phase_launcher()

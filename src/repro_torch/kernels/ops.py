@@ -9,7 +9,8 @@ Each wrapper counts its kernel launches in a plain integer attribute,
 run can show that its path went through the kernel; the attention wrappers
 also count by shape, ``<wrapper>.by_shape[(hd, group)]``. A decode call
 counts as one launch though it is two device launches (split and combine)
-when the context is split. The kernels take head dims 32/64/96/128/192/256 unpadded
+when the context is split; a CUDA graph's replay counts the launches its
+capture recorded (``add_launches``). The kernels take head dims 32/64/96/128/192/256 unpadded
 (``supports`` in each kernel module; decode takes groups of up to 16 query
 heads per KV head, flash any group) and scale scores by the true head dim,
 so the JAX package's ``_pad_head`` has no counterpart.
@@ -169,6 +170,42 @@ def reset_launches() -> None:
 
 def launches() -> Dict[str, int]:
     return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def launch_counts() -> Dict[str, tuple]:
+    """Every counter, ``{wrapper: (launches, by_shape)}``, for
+    :func:`take_launches_since`."""
+    return {name: (fn.launches, dict(getattr(fn, "by_shape", {})))
+            for name, fn in COUNTED.items()}
+
+
+def take_launches_since(before: Dict[str, tuple]) -> Dict[str, tuple]:
+    """The launches counted since ``before`` (:func:`launch_counts`), taken
+    back out of the counters. A CUDA graph capture launches nothing: the
+    wrappers it ran count through :func:`add_launches` once a replay."""
+    taken = {}
+    for name, fn in COUNTED.items():
+        n0, shapes0 = before[name]
+        shapes = getattr(fn, "by_shape", None)
+        grown = {key: n - shapes0.get(key, 0)
+                 for key, n in (shapes or {}).items()
+                 if n != shapes0.get(key, 0)}
+        if fn.launches != n0 or grown:
+            taken[name] = (fn.launches - n0, grown)
+        fn.launches = n0
+        if shapes is not None:
+            fn.by_shape = shapes0
+    return taken
+
+
+def add_launches(counts: Dict[str, tuple]) -> None:
+    """Count launches made outside the wrappers (a graph replay): ``counts``
+    as :func:`take_launches_since` returns them."""
+    for name, (n, shapes) in counts.items():
+        fn = COUNTED[name]
+        fn.launches += n
+        for key, m in shapes.items():
+            fn.by_shape[key] = fn.by_shape.get(key, 0) + m
 
 
 def launches_by_shape() -> Dict[str, Dict[tuple, int]]:

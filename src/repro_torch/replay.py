@@ -278,8 +278,11 @@ def serving_for(serving: Dict[str, Any], device, **kw):
 
 
 def run_engine(case: Dict[str, Any], variant: str, model, params,
-               device) -> Dict[int, List[int]]:
-    """One engine case under one variant: ``{rid: greedy tokens}``."""
+               device, stats: Optional[Dict[str, int]] = None
+               ) -> Dict[int, List[int]]:
+    """One engine case under one variant: ``{rid: greedy tokens}``. A
+    ``stats`` dict receives the engine's fused-step counters (graphed,
+    eager, captures)."""
     from repro_torch.serving.engine import TierEngine
 
     paged, fused = VARIANTS[variant]
@@ -291,7 +294,12 @@ def run_engine(case: Dict[str, Any], variant: str, model, params,
         eos_id=case["eos_id"])
     for rid, toks, max_new, extras in jobs:
         eng.submit(rid, toks, max_new=max_new, extras=extras)
-    return {s.rid: list(s.generated) for s in eng.run_until_drained()}
+    out = {s.rid: list(s.generated) for s in eng.run_until_drained()}
+    if stats is not None:
+        stats.update(graph=eng.decode_graph_steps,
+                     eager=eng.decode_eager_steps,
+                     captures=eng.decode_graph_captures)
+    return out
 
 
 def first_mismatch(got: Dict[int, List[int]], want: Dict[str, List[int]],

@@ -13,7 +13,9 @@ table per slot (``ServingConfig(paged=True)``, the launcher default).
   device; the KV writes land in place in the preallocated cache. The host
   receives one ``(B, fused_steps)`` token block, one sync per K tokens.
   Attention reads a context-bucket view (``_context_bucket``) just covering
-  the longest live context.
+  the longest live context. The families whose cache writes by absolute
+  position run each step in place over static block state; on the card
+  that step is one CUDA graph per context bucket, replayed K times.
 * **Bucketed prefill**: waiting prompts are right-padded to power-of-two
   length buckets; all same-bucket requests prefill in ONE batched call and
   scatter into their slots (through the page tables on a paged engine).
@@ -57,6 +59,7 @@ stream.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -73,6 +76,7 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.config import ModelConfig, ServingConfig
+from repro_torch.kernels import ops
 from repro_torch.serving.paged import PagePool, pages_needed
 from repro_torch.serving.prefix import (ParkedSession, PrefixStore,
                                         SessionStore, extension_suffix,
@@ -421,6 +425,60 @@ def _weak_hook(method: Callable) -> Callable:
     return hook
 
 
+class _BlockState:
+    """A fused block's inputs and loop state on the device, made once an
+    engine and outside any graph pool: a captured step reads and writes
+    these addresses. The inputs arrive from host staging (pinned on the
+    card) in one copy each: ``vec`` holds the rows token, position and
+    budget (int32), ``key_vec`` (at temperature > 0) the columns of a
+    slot's key pair and its request id (int64)."""
+
+    def __init__(self, b: int, device: torch.device, keyed: bool):
+        pin = device.type == "cuda"
+        self.host = torch.empty((3, b), dtype=torch.int32, pin_memory=pin)
+        self.host_np = self.host.numpy()
+        self.vec = torch.empty((3, b), dtype=torch.int32, device=device)
+        self.tok, self.pos, self.budget = self.vec.unbind(0)
+        self.alive = torch.empty((b,), dtype=torch.bool, device=device)
+        self.produced = torch.empty((b,), dtype=torch.int32, device=device)
+        self.bi = torch.arange(b, device=device)
+        if keyed:
+            self.key_host = torch.empty((b, 3), dtype=torch.int64,
+                                        pin_memory=pin)
+            self.key_host_np = self.key_host.numpy()
+            self.key_vec = torch.empty((b, 3), dtype=torch.int64,
+                                       device=device)
+            self.keys, self.rids = self.key_vec[:, :2], self.key_vec[:, 2]
+
+
+#: the side stream of each device on which every engine captures its
+#: graphs and runs a bucket's eager first step. One a device: each stream
+#: that runs a cuBLAS call keeps a workspace of its own for the process's
+#: life
+_CAPTURE_STREAMS: Dict[int, Any] = {}
+
+
+def _capture_stream(device: torch.device):
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
+@contextlib.contextmanager
+def _on_stream(stream):
+    """Work issued inside runs on ``stream``, after what the current
+    stream issued before and before what it issues after."""
+    prev = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(prev)
+    try:
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        prev.wait_stream(stream)
+
+
 class TierEngine:
     def __init__(self, model, params, serving: ServingConfig = ServingConfig(),
                  eos_id: int = 2, sample_temp: float = 0.0, seed: int = 0):
@@ -575,6 +633,18 @@ class TierEngine:
         # (hybrid) and recurrent state (ssm) keep full-width attention
         self._ctx_buckets = (serving.context_buckets
                              and self.cfg.family in ("dense", "vlm", "moe"))
+        # the fused block's steps as CUDA graphs (``_fused_static``) on the
+        # card; the recurrent families' block stays eager
+        self._graph_ok = self.device.type == "cuda"
+        self._g: Optional[_BlockState] = None
+        self._graphs: Dict[Optional[int], tuple] = {}  # ctx -> (graph,
+        # the launches a replay makes)
+        self._graph_seen: set = set()  # buckets whose first step ran eagerly
+        self._graph_key: Optional[tuple] = None  # storage the graphs read
+        self._graph_pool = None
+        self.decode_graph_steps = 0  # fused steps replayed from a graph
+        self.decode_eager_steps = 0  # fused steps issued op by op
+        self.decode_graph_captures = 0
 
     # ------------------------------------------------------------------
     # hot-path blocks
@@ -598,9 +668,32 @@ class TierEngine:
             slots = [(int(rids[i]), int(positions[i]), int(budgets[i]))
                      for i in np.flatnonzero(np.asarray(budgets) > 0)]
         issue = tracing.begin("engine.decode.issue", tier=self.tier)
+        ctx = teff if teff < int(self.serving.max_seq) else None
+        if self.cfg.family in ("ssm", "hybrid"):
+            block = self._fused_recurrent(tokens, positions, budgets, ctx,
+                                          k_steps, rids)
+            graphed = 0
+        else:
+            block, graphed = self._fused_static(tokens, positions, budgets,
+                                                ctx, k_steps, rids)
+        tracing.end(issue)
+        sync = tracing.begin("engine.decode.sync", tier=self.tier)
+        block = block.cpu().numpy()
+        tracing.end(sync)
+        if sp:
+            tracing.end(sp, k=k_steps, teff=teff, slots=slots,
+                        graph=graphed == k_steps)
+        return block
+
+    def _fused_recurrent(self, tokens, positions, budgets, ctx, k_steps,
+                         rids) -> torch.Tensor:
+        """The fused block of the ssm/hybrid families, eager. They carry
+        recurrent state (and a ring whose write index wraps onto LIVE
+        entries): a dead slot's decode would keep mutating it, corrupting
+        the rows session parking extracts at finish, so each step restores
+        a dead slot's whole row from a copy taken before it."""
         model, params, cache = self.model, self.params, self.cache
         max_seq = int(self.serving.max_seq)
-        ctx = teff if teff < max_seq else None
         dev = self.device
         tok = torch.as_tensor(tokens, device=dev)
         pos = torch.as_tensor(positions, device=dev)
@@ -610,22 +703,10 @@ class TierEngine:
             rids_d = torch.as_tensor(rids, device=dev)
         alive = budgets_d > 0
         produced = torch.zeros_like(budgets_d)
-        bi = torch.arange(tok.shape[0], device=dev)
-        # ssm/hybrid carry recurrent state (and a ring whose write index
-        # wraps onto LIVE entries): a dead slot's decode would keep mutating
-        # it, corrupting the rows session parking extracts at finish. Their
-        # whole dead row is restored from a copy taken before each step; the
-        # full-capacity-pos families only need the pos/index freeze (dead
-        # writes land on pos=-1 entries, which reads mask out)
-        freeze_rows = self.cfg.family in ("ssm", "hybrid")
         out = []
         for _ in range(k_steps):
-            if freeze_rows:
-                before = [(name, leaf.clone())
-                          for name, leaf in _named_leaves(cache)]
-            else:
-                idx0 = cache["index"].clone()
-                old_pos = cache["pos"][bi, idx0.long()]
+            before = [(name, leaf.clone())
+                      for name, leaf in _named_leaves(cache)]
             logits, cache = model.decode_step(
                 params, cache, {"tokens": tok[:, None], "positions": pos},
                 ctx=ctx)
@@ -640,31 +721,145 @@ class TierEngine:
             alive2 = (alive & (sampled != self.eos_id) & (produced < budgets_d)
                       & (pos2 + 1 < max_seq))
             tok2 = torch.where(alive, sampled, tok)
-            if freeze_rows:
-                for name, old in before:
-                    leaf = _get(cache, name)  # index is a new tensor
-                    shape = [1] * leaf.dim()
-                    shape[self._axis_by_name[name][0]] = alive.shape[0]
-                    torch.where(alive.reshape(shape), leaf, old, out=leaf)
-            else:
-                # freeze write bookkeeping of dead slots: their KV writes
-                # land on an entry whose pos stays -1 (masked), instead of
-                # marching the write index over live-looking entries
-                new_pos = cache["pos"][bi, idx0.long()]
-                cache["pos"][bi, idx0.long()] = torch.where(alive, new_pos,
-                                                            old_pos)
-                cache["index"] = torch.where(alive, cache["index"], idx0)
+            for name, old in before:
+                leaf = _get(cache, name)  # index is a new tensor
+                shape = [1] * leaf.dim()
+                shape[self._axis_by_name[name][0]] = alive.shape[0]
+                torch.where(alive.reshape(shape), leaf, old, out=leaf)
             tok, pos, alive = tok2, pos2, alive2
             out.append(tok2)
         self.cache = cache
-        block = torch.stack(out, dim=1)
-        tracing.end(issue)
-        sync = tracing.begin("engine.decode.sync", tier=self.tier)
-        block = block.cpu().numpy()
-        tracing.end(sync)
-        if sp:
-            tracing.end(sp, k=k_steps, teff=teff, slots=slots)
-        return block
+        self.decode_eager_steps += k_steps
+        return torch.stack(out, dim=1)
+
+    def _fused_static(self, tokens, positions, budgets, ctx, k_steps,
+                      rids) -> tuple:
+        """The fused block of the families whose cache writes by absolute
+        position: the block's inputs go once into the engine's static state
+        (:class:`_BlockState`), then ``k_steps`` times :meth:`_static_step`,
+        each step's token copied into column j of the block. On the card a
+        step is a CUDA graph per context bucket, captured at the bucket's
+        second use (the first runs eagerly, as the capture's warm-up) and
+        dropped whenever the storage the step reads changes
+        (:meth:`_graph_storage`). Returns the (B, k_steps) device block and
+        the number of steps replayed."""
+        g = self._block_state()
+        g.host_np[0] = tokens
+        g.host_np[1] = positions
+        g.host_np[2] = budgets
+        g.vec.copy_(g.host, non_blocking=True)
+        if self.temp > 0:
+            g.key_host_np[:, :2] = self._keys
+            g.key_host_np[:, 2] = rids
+            g.key_vec.copy_(g.key_host, non_blocking=True)
+        torch.gt(g.budget, 0, out=g.alive)
+        g.produced.zero_()
+        if self._graph_ok:
+            storage = self._graph_storage()
+            if storage != self._graph_key:
+                self._graphs.clear()
+                self._graph_seen.clear()
+                self._graph_pool = None
+                self._graph_key = storage
+        out = torch.empty((g.tok.shape[0], k_steps), dtype=torch.int32,
+                          device=self.device)
+        graphed = 0
+        for j in range(k_steps):
+            if not self._graph_ok:
+                self._static_step(ctx)
+            else:
+                graph = self._graphs.get(ctx)
+                if graph is None and ctx in self._graph_seen:
+                    graph = self._graphs[ctx] = self._capture(ctx)
+                if graph is None:
+                    with self._side_stream():
+                        self._static_step(ctx)
+                    self._graph_seen.add(ctx)
+                else:
+                    graph[0].replay()
+                    ops.add_launches(graph[1])
+                    graphed += 1
+            out[:, j].copy_(g.tok)
+        self.decode_graph_steps += graphed
+        self.decode_eager_steps += k_steps - graphed
+        return out, graphed
+
+    def _block_state(self) -> "_BlockState":
+        if self._g is None:
+            self._g = _BlockState(len(self.slots), self.device, self.temp > 0)
+        return self._g
+
+    def _static_step(self, ctx: Optional[int]) -> None:
+        """One decode step over the static block state and the engine's
+        cache, every result written in place (the step a graph captures):
+        decode -> on-device sample -> the per-slot EOS/budget/cap masking
+        and the freeze of dead slots' write bookkeeping (their KV writes
+        land on an entry whose pos stays -1, which reads mask out, instead
+        of marching the write index over live-looking entries)."""
+        g, cache = self._g, self.cache
+        max_seq = int(self.serving.max_seq)
+        idx0 = cache["index"].clone()
+        old_pos = cache["pos"][g.bi, idx0.long()]
+        # decode_step rebinds "index" in the dict it is given: a shallow
+        # copy keeps self.cache on the engine's own tensor
+        logits, stepped = self.model.decode_step(
+            self.params, dict(cache),
+            {"tokens": g.tok[:, None], "positions": g.pos}, ctx=ctx)
+        if self.temp > 0:
+            sampled = keyed_sample(logits, g.keys, g.rids, g.pos, self.temp)
+        else:
+            sampled = torch.argmax(logits, dim=-1)
+        sampled = sampled.to(torch.int32)
+        alive = g.alive
+        produced = g.produced + alive.to(torch.int32)
+        pos2 = torch.where(alive, g.pos + 1, g.pos)
+        # same stop rules the host applies per appended token
+        alive2 = (alive & (sampled != self.eos_id) & (produced < g.budget)
+                  & (pos2 + 1 < max_seq))
+        tok2 = torch.where(alive, sampled, g.tok)
+        new_pos = cache["pos"][g.bi, idx0.long()]
+        cache["pos"][g.bi, idx0.long()] = torch.where(alive, new_pos, old_pos)
+        cache["index"].copy_(torch.where(alive, stepped["index"], idx0))
+        g.tok.copy_(tok2)
+        g.pos.copy_(pos2)
+        g.alive.copy_(alive2)
+        g.produced.copy_(produced)
+
+    def _graph_storage(self) -> tuple:
+        """The storage a captured step reads by address: every cache leaf,
+        every parameter and the f32 unembedding table, each with its
+        layout. ``restore()`` or a new parameter tree changes it."""
+        leaves = [t for _, t in _named_leaves(self.cache)]
+        leaves += [t for _, t in _named_leaves(self.params)]
+        leaves.append(self.model.unembed_table_f32(self.params))
+        return tuple((t.data_ptr(), t.shape, t.stride(), t.dtype)
+                     for t in leaves)
+
+    def _side_stream(self):
+        """A context on the device's capture stream, ordered after the
+        current stream's work and before what the current stream does
+        next. A bucket's eager first step runs there too, so the libraries'
+        per-stream workspaces exist before the capture."""
+        return _on_stream(_capture_stream(self.device))
+
+    def _capture(self, ctx: Optional[int]) -> tuple:
+        """(a CUDA graph of one :meth:`_static_step` at ``ctx``, the kernel
+        launches a replay makes). The engine's graphs share one pool: each
+        replay writes its results into the static state and the cache, and
+        no graph reads what another left in the pool."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
+        with self._side_stream():
+            graph.capture_begin(pool=self._graph_pool,
+                                capture_error_mode="thread_local")
+            try:
+                self._static_step(ctx)
+            finally:
+                graph.capture_end()
+        self.decode_graph_captures += 1
+        return graph, ops.take_launches_since(before)
 
     def _prefill_insert(self, batch: Dict[str, torch.Tensor],
                         slots: np.ndarray, total: np.ndarray,

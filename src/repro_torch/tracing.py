@@ -53,10 +53,14 @@ stretch of the device by the innermost span open at its middle):
   ``engine.prefill.sync`` (the logits copied to the host),
   ``engine.prefill.start`` (each row's first token and callbacks).
 * ``engine.decode_block`` (tier): ``k``, ``teff`` and ``slots``, one
-  ``(rid, position, budget)`` a live slot.
+  ``(rid, position, budget)`` a live slot; ``graph``, true when every
+  step of the block was a CUDA graph's replay (the engine's
+  ``decode_graph_steps`` / ``decode_eager_steps`` count the steps).
   ``engine.decode_device_busy_pct``, ``engine.decode_issue_ms`` (its
   ``k``); idle. Its children: ``engine.decode.issue`` (entry to the last
-  launch of the k steps; ``engine.decode_issue_ms``, idle) and
+  launch of the k steps: the inputs' copies to the device and the k
+  replays, or the k steps' eager launches and any capture;
+  ``engine.decode_issue_ms``, idle) and
   ``engine.decode.sync`` (the token block copied to the host; idle).
 * ``engine.emit`` (tier): the block's tokens handed out, callbacks
   included. Idle.

@@ -168,3 +168,51 @@ def test_live_run_spans_carry_their_tier_and_nest():
         step = by_id[s.parent]
         assert step.name == "engine.step" and step.tier == s.tier
         assert by_id[step.parent].name == "runtime.advance"
+
+
+class _Replay:
+    """A CPU stand-in for one captured decode step."""
+
+    def __init__(self, eng, ctx):
+        self.eng, self.ctx = eng, ctx
+
+    def replay(self):
+        self.eng._static_step(self.ctx)
+
+
+@pytest.mark.parametrize("graphs", [False, True])
+def test_decode_block_span_carries_graph(monkeypatch, graphs):
+    """``engine.decode_block`` carries ``graph``: false on an eager engine
+    (the CPU), and on the graph path false for a block whose bucket met its
+    eager first step or its capture, true once every step replayed (a
+    stand-in replay on the CPU)."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import TierEngine
+
+    model = build_model(reduced_config("qwen3-0.6b").replace(
+        dtype="float32"), device="cpu")
+    eng = TierEngine(model, model.init(0),
+                     ServingConfig(max_batch=2, max_seq=64, fused_steps=4),
+                     eos_id=-1)
+    if graphs:
+        def capture(ctx):
+            eng.decode_graph_captures += 1
+            return _Replay(eng, ctx), {}
+
+        eng._graph_ok = True
+        monkeypatch.setattr(eng, "_capture", capture)
+        monkeypatch.setattr(eng, "_side_stream", contextlib.nullcontext)
+    eng.submit(0, np.arange(4, 20, dtype=np.int32), max_new=13)
+    tracing.enable()
+    eng.run_until_drained()
+    tracing.disable()
+    blocks = [s for s in tracing.records() if s.name == "engine.decode_block"]
+    assert [s.attrs["k"] for s in blocks] == [4, 4, 4]
+    want = [False, True, True] if graphs else [False] * 3
+    assert [s.attrs["graph"] for s in blocks] == want
+    assert eng.decode_graph_steps == (11 if graphs else 0)

@@ -103,10 +103,18 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      weights on the CPU (plain versions), fused and per token, paged and
      dense, and a resumed session and speculative drafts (perfect,
      garbage, partial) commit the fused tokens;
-  11. (a) phi-3-vision-4.2b at full width and depth (hd 96, MHA, 576
-     patches), three requests of the launcher's mix through ClusterServer
-     on a paged pool under "cuda"; fails unless both attention kernels
-     launched at hd 96; (b) nemotron-4-340b at its published widths (hd 192,
+  11. (a) phi-3-vision-4.2b at full width and depth (hd 96, MHA) at its
+     processor's 2509 image tokens (4096-wide projector inputs), four
+     requests of the launcher's mix through ClusterServer on paged pools of
+     4096-row slots under "cuda"; fails unless both attention kernels
+     launched at hd 96, or if a prefill group's peak device memory above
+     the resident set passes one layer's K/V plus the group's activations
+     (``prefill_bytes_per_position``) by more than 2 GB (the paged prefill
+     writes each layer's K/V into the pages; the capacity-wide copy it
+     replaced held every layer's K/V twice over); then a two-row group
+     prefilled straight into the pages against the capacity-wide copy
+     scattered through the same tables, bf16 on the card: every page but
+     the null page, pos, index and logits bitwise equal, both timed; (b) nemotron-4-340b at its published widths (hd 192,
      96/8 heads, vocab 256000), depth cut to 2 of 96 layers (16.4 B
      parameters, bf16): a 2048-token prefill under "cuda" against "auto"
      (finite, within a tenth of the largest |logit|, argmax equal; phase 10
@@ -2853,14 +2861,139 @@ def nemotron_full_width(records):
     torch.cuda.empty_cache()
 
 
+#: a prefill group's measured peak above the resident set may pass one
+#: layer's K/V plus its activations by this much (phase 11)
+PREFILL_PEAK_SLACK = 2e9
+
+
+def _watch_prefill_memory(eng, tier, peaks):
+    """Wrap ``eng._admit_group``: each group's peak device memory above
+    what was allocated before it, beside one layer's K/V and the engine's
+    activation count for the group (rows padded x positions)."""
+    import torch
+
+    from repro_torch.serving.engine import prefill_bytes_per_position
+
+    admit = eng._admit_group
+    cfg = eng.cfg
+
+    def measured(jobs, slots, bucket):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        admit(jobs, slots, bucket)
+        torch.cuda.synchronize()
+        rows = 1 << (len(jobs) - 1).bit_length()
+        positions = rows * (cfg.num_patches + bucket)
+        layer_kv = 2 * positions * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+        peaks.append((tier, len(jobs), rows, bucket,
+                      torch.cuda.max_memory_allocated() - base, layer_kv,
+                      positions * prefill_bytes_per_position(cfg)))
+    eng._admit_group = measured
+
+
+def _capacity_copy_prefill(eng, batch, slots_arr, total, pt_rows, npg):
+    """The prefill the paged one replaced: ``prefill``'s capacity-wide
+    cache of every layer, scattered through the page tables."""
+    import torch
+
+    from repro_torch.serving.engine import _at, _get, _named_leaves
+
+    logits, cache1 = eng.model.prefill(eng.params, batch, eng.serving.max_seq)
+    slots_d = torch.as_tensor(slots_arr, device="cuda").long()
+    total_d = torch.as_tensor(total, device="cuda")
+    cap = cache1["pos"].shape[1]
+    cache1["pos"] = torch.where(cache1["pos"] < total_d[:, None],
+                                cache1["pos"], -1)
+    cache1["index"] = (torch.clamp(total_d, max=cap) % cap).to(torch.int32)
+    page = eng.serving.kv_page_size
+    for name, one in _named_leaves(cache1):
+        pool = _get(eng.cache, name)
+        bax = eng._axis_by_name[name][0]
+        if name not in eng._paged_names:
+            pool[_at(bax, slots_d)] = one.to(pool.dtype)
+            continue
+        one = one.reshape(one.shape[:bax + 1] + (eng._n_pt, page)
+                          + one.shape[bax + 2:])
+        pt_sl = torch.as_tensor(pt_rows[:, :npg], device="cuda").long()
+        pool[_at(bax, pt_sl)] = one[_at(bax + 1, slice(0, npg))].to(
+            pool.dtype)
+    eng.cache["pages"][slots_d] = torch.as_tensor(pt_rows, device="cuda")
+    return logits
+
+
+def _paged_prefill_bitwise(eng):
+    """Two rows (one padded) of 2509 image tokens and a 256-token bucket
+    into reserved pages, straight (``_prefill_insert`` on the pages) and
+    through the capacity-wide copy, from the same pool state: every page
+    but the null page, pos, index, page tables and logits bitwise equal.
+    Returns (paged ms, capacity-copy ms)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.engine import _get, _named_leaves
+
+    cfg = eng.cfg
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bucket, lengths = 256, np.array([200, 256], np.int32)
+    toks = torch.randint(3, cfg.vocab_size, (2, bucket), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks, "lengths": torch.as_tensor(lengths,
+                                                        device="cuda"),
+             "patches": torch.rand((2, cfg.num_patches, cfg.frontend_dim),
+                                   generator=gen, device="cuda")}
+    total = lengths + cfg.num_patches
+    slots = np.array([0, 1], np.int32)
+    for slot, need in zip(slots, (12, 16)):  # past the prompt, the whole row
+        eng._assign_pages(int(slot), eng._reserve_pages(need))
+    pt_rows = eng._pt[slots]
+    keep = {n: t.clone() for n, t in _named_leaves(eng.cache)}
+    out, ms = {}, {}
+    for how in ("paged", "copy", "paged", "copy"):
+        for n, t in _named_leaves(eng.cache):
+            t.copy_(keep[n])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.no_grad():
+            if how == "paged":
+                logits = eng._prefill_insert(batch, slots, total, pt_rows, 16)
+            else:
+                logits = _capacity_copy_prefill(eng, batch, slots, total,
+                                                pt_rows, 16)
+        end.record()
+        torch.cuda.synchronize()
+        ms.setdefault(how, []).append(start.elapsed_time(end))
+        out[how] = (logits, {n: t.clone() for n, t in
+                             _named_leaves(eng.cache)})
+    if not torch.equal(out["paged"][0], out["copy"][0]):
+        fail("phi-3-vision paged prefill: logits differ from the "
+             "capacity-wide copy's")
+    for n, t in out["paged"][1].items():
+        other = out["copy"][1][n]
+        if n in eng._paged_names:
+            t, other = t[:, 1:], other[:, 1:]  # the null page is garbage
+        if not torch.equal(t, other):
+            fail(f"phi-3-vision paged prefill: {n} differs from the "
+                 f"capacity-wide copy's")
+    for slot in slots:
+        eng._release_pages(int(slot))
+    del keep, out
+    return min(ms["paged"]), min(ms["copy"])
+
+
 def phase_zoo_serve(records):
-    """Phase 11: (a) phi-3-vision-4.2b (vlm; hd 96, 32 heads, MHA) at full width
-    and depth (32 layers, d 3072, 576 patches), bf16, random weights,
-    through ClusterServer on two engines over the same model (paged, 64-row
-    pages, attn_impl "cuda", max_seq 1024): three requests of the
-    launcher's mix, 16 new tokens. Fails unless both attention kernels
-    launched at hd 96 (and the serve's own checks: every token in the
-    vocabulary, image scores); (b) ``nemotron_full_width``."""
+    """Phase 11: (a) phi-3-vision-4.2b (vlm; hd 96, 32 heads, MHA) at full
+    width and depth (32 layers, d 3072) and its processor's 2509 image
+    tokens (4096-wide projector inputs), bf16, random weights, through
+    ClusterServer on two engines over the same model (paged, 256-row pages,
+    attn_impl "cuda", max_seq 4096): four requests of the launcher's mix,
+    16 new tokens. Fails unless both attention kernels launched at hd 96
+    (and the serve's own checks: every token in the vocabulary, image
+    scores), or if a prefill group's peak memory above the resident set
+    passes one layer's K/V plus the group's activations by more than
+    ``PREFILL_PEAK_SLACK``; then ``_paged_prefill_bitwise`` on the cloud
+    engine; (b) ``nemotron_full_width``."""
     import torch
 
     from repro_torch.config import ServingConfig, get_topology
@@ -2871,15 +3004,39 @@ def phase_zoo_serve(records):
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("phi-3-vision-4.2b").replace(dtype="bfloat16")
+    cfg = get_config("phi-3-vision-4.2b").replace(
+        dtype="bfloat16", num_patches=2509, frontend_dim=4096)
     model = build_model(cfg, attn_impl="cuda", device="cuda")
     params = model.init(0)
-    sv = ServingConfig(max_batch=4, max_seq=1024, paged=True,
-                       kv_page_size=64, fused_steps=8)
+    sv = ServingConfig(max_batch=4, max_seq=4096, paged=True,
+                       kv_page_size=256, fused_steps=8)
     engines = {tier: TierEngine(model, params, sv)
                for tier in ("edge", "cloud")}
-    counts = serve(engines, get_topology("edge-cloud"), 3, 16,
-                   "phi-3-vision full width, paged, attn cuda")
+    peaks = []
+    for tier, eng in engines.items():
+        _watch_prefill_memory(eng, tier, peaks)
+    counts = serve(engines, get_topology("edge-cloud"), 4, 16,
+                   "phi-3-vision full width, 2509 image tokens, paged, "
+                   "attn cuda")
+    for eng in engines.values():
+        del eng._admit_group  # the wrapper holds its engine: a cycle
+    if not peaks:
+        fail("phi-3-vision serve ran no prefill group")
+    for tier, r, rp, bucket, peak, layer_kv, act in peaks:
+        print(f"  phi-3-vision prefill group ({tier}, {r} rows of {rp}, "
+              f"bucket {bucket}): peak above resident {peak / 1e9:.3f} GB, "
+              f"one layer's K/V {layer_kv / 1e9:.3f} GB, activations "
+              f"counted {act / 1e9:.3f} GB (measured / counted "
+              f"{peak / (layer_kv + act):.3f})")
+        if peak > layer_kv + act + PREFILL_PEAK_SLACK:
+            fail(f"phi-3-vision prefill group holds {peak / 1e9:.3f} GB "
+                 f"above the resident set: more than one layer's K/V and "
+                 f"the activations ({(layer_kv + act) / 1e9:.3f} GB) + "
+                 f"{PREFILL_PEAK_SLACK / 1e9:.0f} GB")
+    paged_ms, copy_ms = _paged_prefill_bitwise(engines["cloud"])
+    print(f"  phi-3-vision paged prefill (2 rows, S={2509 + 256}) "
+          f"bitwise equal to the capacity-wide copy; {paged_ms:.2f} ms "
+          f"against {copy_ms:.2f} ms (CUDA events, the faster of two)")
     by_shape = ops.launches_by_shape()
     key = (cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads)
     for name in ("flash_attention", "decode_attention_paged"):

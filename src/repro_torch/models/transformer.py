@@ -333,6 +333,34 @@ def _write_rows(leaf: torch.Tensor, layer: Optional[int], idx: torch.Tensor,
     cur.copy_(torch.where(hit, rows, cur))
 
 
+def page_slots(pages: torch.Tensor, page: int, s: int,
+               capacity: int) -> Dict[str, Any]:
+    """Where a prefill of ``s`` positions lands in a paged pool viewed as
+    flat rows ``(P * page, ...)``: row b's logical page j is physical page
+    ``pages[b, j]`` (int64), for j < ``pages.shape[1]``. Those pages hold
+    what the capacity-wide cache of the prefill would: the prompt's rows
+    from ``lo`` (its last ``capacity`` rows when longer), ``m`` of them, at
+    the flat rows ``dst``; zeros at the flat rows ``tail``."""
+    lo = max(0, s - capacity)
+    n = pages.shape[1] * page
+    m = min(s - lo, n)
+    t = torch.arange(n, device=pages.device)
+    flat = pages[:, t // page] * page + t % page
+    return {"lo": lo, "m": m, "dst": flat[:, :m].reshape(-1),
+            "tail": flat[:, m:].reshape(-1)}
+
+
+def write_pages(pool: torch.Tensor, at: Dict[str, Any],
+                rows: torch.Tensor) -> None:
+    """One layer's prefill K or V rows (B, S, ...) into its paged pool
+    ``(P, page, ...)``, in place, at the flat rows :func:`page_slots`
+    gave."""
+    src = rows[:, at["lo"]:at["lo"] + at["m"]]
+    pool.view((-1,) + tuple(pool.shape[2:])).index_copy_(
+        0, at["dst"], src.reshape((-1,) + tuple(rows.shape[2:])).to(
+            pool.dtype))
+
+
 def _layer(tree: Dict[str, Any], l: int) -> Dict[str, Any]:
     return {k: (_layer(v, l) if isinstance(v, dict) else v[l])
             for k, v in tree.items()}
@@ -702,9 +730,11 @@ class DecoderLM(nn.Module):
                       else "none")
 
     def _stack(self, params, x, positions, mode, cache, ctx=None,
-               idx=None):
+               idx=None, kv_sink=None):
         """Returns (x, the MoE layers' summed aux loss, the prefill's layer
-        caches)."""
+        caches). With ``kv_sink``, a prefill hands each layer's (k, v) to
+        ``kv_sink(key, layer, k, v)`` as the layer produces them and keeps
+        none (the KV families only)."""
         cfg = self.cfg
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "ssm":
@@ -729,7 +759,10 @@ class DecoderLM(nn.Module):
                     idx, layer=l, ctx=ctx, pages=pages, moe=moe)
                 if aux is not None:
                     aux_total = aux_total + aux
-                if kv is not None:
+                if kv is not None and kv_sink is not None:
+                    kv_sink(key, l, *kv)
+                    kv = None  # freed before the next layer runs
+                elif kv is not None:
                     ks.append(kv[0])
                     vs.append(kv[1])
             if ks:
@@ -835,9 +868,10 @@ class DecoderLM(nn.Module):
 
     @on_mesh
     def forward(self, params, batch, mode="prefill", cache=None, ctx=None,
-                idx=None):
+                idx=None, kv_sink=None):
         """Backbone -> (final hidden states (B, S_total, D), the MoE aux
-        loss, the prefill's layer caches, the vision prefix length)."""
+        loss, the prefill's layer caches, the vision prefix length).
+        ``kv_sink``: see :meth:`_stack`."""
         x, prefix = self._embed_inputs(params, batch, mode)
         b, s, _ = x.shape
         if mode == "decode":
@@ -848,7 +882,7 @@ class DecoderLM(nn.Module):
             positions = torch.arange(s, dtype=torch.int32,
                                      device=x.device)[None].expand(b, s)
         x, aux, layer_caches = self._stack(params, x, positions, mode, cache,
-                                           ctx, idx)
+                                           ctx, idx, kv_sink)
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         return x, aux, layer_caches, prefix
 
@@ -910,14 +944,58 @@ class DecoderLM(nn.Module):
         hidden, _, layer_caches, prefix = self.forward(params, batch,
                                                        "prefill")
         b, s, _ = hidden.shape
+        logits = self._last_logits(params, hidden, batch, prefix)
+        cache = self._assemble_prefill_cache(layer_caches, b, s, capacity)
+        return logits, cache
+
+    def prefill_paged(self, params, batch, pool: Dict[str, Any],
+                      pages: torch.Tensor, capacity: int) -> torch.Tensor:
+        """Run the prompt and write each layer's K and V straight into a
+        paged pool as the layer produces them; returns the last-token
+        logits (B, V), as :meth:`prefill` does.
+
+        ``pool`` holds the pool leaves ``(L, P, page, K, hd)`` under the
+        stack's keys (the engine's cache); ``pages`` (B, n) is the physical
+        page of each row's first n logical pages (0, the null page, past
+        what a row reserved). Each of those pages receives what it would
+        hold of :meth:`prefill`'s capacity-wide cache: the prompt's rows,
+        zeros past its end (the last ``capacity`` rows of a longer
+        prompt). No K/V beyond the layer in flight is held. The caller
+        writes ``pos``, ``index`` and the page tables."""
+        if self.cfg.family not in KV_FAMILIES:
+            raise ValueError(f"a paged prefill needs positional KV pages; "
+                             f"{self.cfg.family} keeps recurrent state")
+        if self.mesh is not None:
+            raise NotImplementedError("a paged prefill runs on one device, "
+                                      "not on a mesh")
+        pages = pages.long()
+        at: Dict[str, Any] = {}  # set at the first layer, which knows S
+
+        def sink(key, layer, k, v):
+            leaves = (pool[key]["k"], pool[key]["v"])
+            if not at:
+                at.update(page_slots(pages, leaves[0].shape[2], k.shape[1],
+                                     capacity))
+            if layer == 0 and at["tail"].numel():
+                for leaf in leaves:  # every layer's rows past the prompt
+                    leaf.view(leaf.shape[:1] + (-1,)
+                              + tuple(leaf.shape[3:]))[:, at["tail"]] = 0
+            write_pages(leaves[0][layer], at, k)
+            write_pages(leaves[1][layer], at, v)
+        hidden, _, _, prefix = self.forward(params, batch, "prefill",
+                                            kv_sink=sink)
+        return self._last_logits(params, hidden, batch, prefix)
+
+    def _last_logits(self, params, hidden, batch, prefix) -> torch.Tensor:
+        """Logits (B, V) at each row's true last token (``lengths`` of a
+        right-padded batch; else the last row)."""
         if "lengths" in batch:
+            b = hidden.shape[0]
             last = prefix + batch["lengths"].long() - 1
             hl = hidden[torch.arange(b, device=hidden.device), last][:, None]
         else:
             hl = hidden[:, -1:]
-        logits = self._logits(params, hl)[:, 0]
-        cache = self._assemble_prefill_cache(layer_caches, b, s, capacity)
-        return logits, cache
+        return self._logits(params, hl)[:, 0]
 
     def _assemble_prefill_cache(self, layer_caches, b, s, capacity):
         """Pad per-layer prefill KV into capacity-sized decode caches; the

@@ -93,6 +93,24 @@ from repro_torch.serving.prefix import (ParkedSession, PrefixStore,
 _PADDED_FAMILIES = ("dense", "vlm", "encdec")
 
 
+#: device memory a prefill group's budget leaves free for everything else
+#: on the card: captured decode graphs, library workspaces, fragmentation
+PREFILL_RESERVE = 4 << 30
+
+
+def prefill_bytes_per_position(cfg: ModelConfig) -> int:
+    """Bytes a prefill holds for one position (row x length) of its group,
+    counted high: the residual stream, the attention's and the MLP's live
+    tensors in the model dtype, the f32 norm and RoPE temporaries, the
+    layer's K/V and its page-padded copy, and the f32 vision patches."""
+    elt = 4 if cfg.dtype == "float32" else 2
+    d, ff = cfg.d_model, cfg.d_ff
+    q = cfg.num_heads * cfg.resolved_head_dim
+    kv = cfg.num_kv_heads * cfg.resolved_head_dim
+    patches = 4 * cfg.frontend_dim if cfg.frontend == "vision_stub" else 0
+    return elt * (4 * d + 4 * ff + 2 * q + 4 * kv) + 16 * d + 12 * q + patches
+
+
 def _next_bucket(n: int, lo: int = 16) -> int:
     """Smallest power-of-two >= n (floored at ``lo`` to bound trace count)."""
     b = lo
@@ -499,7 +517,16 @@ class TierEngine:
             model.decode_impl = serving.decode_impl
 
         b, t = serving.max_batch, serving.max_seq
-        self.cache = model.init_cache(b, t)
+        # prefixes of admitted prompts are positionally addressable
+        # (sliceable at any boundary) only for the full-capacity
+        # absolute-position families; ssm/hybrid state is a point-in-time
+        # snapshot, so only whole processed sequences park
+        self._sliceable = self.cfg.family in ("dense", "vlm", "moe")
+        # on a paged engine of those families the pool below replaces the
+        # dense K/V: its dense cache is shapes only, never allocated
+        kv_pages = serving.paged and self._sliceable
+        self.cache = model.init_cache(b, t,
+                                      device="meta" if kv_pages else None)
         self.slots: List[Optional[SeqState]] = [None] * b
         self.positions = np.zeros((b,), np.int64)  # absolute next position
         self.waiting: List[Dict[str, Any]] = []
@@ -555,11 +582,6 @@ class TierEngine:
             self._dense_specs[name] = (shape, leaf.dtype)
             self._row_specs[name] = (shape[:bax] + shape[bax + 1:],
                                      dtype_tag(leaf))
-        # prefix & session KV reuse: prefixes of admitted prompts are
-        # positionally addressable (sliceable at any boundary) only for the
-        # full-capacity absolute-position families; ssm/hybrid state is a
-        # point-in-time snapshot, so only whole processed sequences park
-        self._sliceable = self.cfg.family in ("dense", "vlm", "moe")
         self.prefix_store = PrefixStore(serving.prefix_cache_mb * 1e6,
                                         min_prefix=serving.prefix_min_tokens)
         self.sessions = SessionStore(serving.session_cache_mb * 1e6)
@@ -576,6 +598,13 @@ class TierEngine:
         self._pt: Optional[np.ndarray] = None  # host page tables (B, n_pt)
         self._slot_pages: List[List[int]] = [[] for _ in range(b)]
         self._page_pressure = False  # set when admission starved for pages
+        # admissions that waited at the head of the queue for free pages,
+        # and the seconds they waited
+        self.page_waits = 0
+        self.page_wait_s = 0.0
+        # positions (rows x length) a prefill group may carry: None = read
+        # from the device's free memory at the first group, 0 = unbounded
+        self.prefill_positions: Optional[int] = None
         self._slot_page_charge = 1  # accounting charge (recurrent families)
         self._n_pt = 0
         self._slots_hw = 0  # dense-mode occupied-slot high-water (gauges)
@@ -601,10 +630,9 @@ class TierEngine:
             page_bytes = 0.0
             paged = []
             for name, leaf in _named_leaves(self.cache):
-                if name in _BOOKKEEPING:
-                    continue
                 bax, sax = self._axis_by_name[name]
-                if sax == bax + 1 and leaf.shape[sax] == t:
+                if (name not in _BOOKKEEPING and sax == bax + 1
+                        and leaf.shape[sax] == t):
                     paged.append(name)
                     page_bytes += (leaf.numel() // (leaf.shape[bax] * t)
                                    * leaf.element_size()) * ps
@@ -612,6 +640,10 @@ class TierEngine:
                              + tuple(leaf.shape[bax + 2:]))
                     _put(self.cache, name, torch.zeros(
                         shape, dtype=leaf.dtype, device=self.device))
+                else:  # pos (-1: an empty entry) and the write index
+                    _put(self.cache, name, torch.full(
+                        tuple(leaf.shape), -1 if name == "['pos']" else 0,
+                        dtype=leaf.dtype, device=self.device))
             self._paged_names = tuple(sorted(paged))
             self.cache["pages"] = torch.zeros((b, self._n_pt),
                                               dtype=torch.int32,
@@ -667,6 +699,9 @@ class TierEngine:
         if sp:
             slots = [(int(rids[i]), int(positions[i]), int(budgets[i]))
                      for i in np.flatnonzero(np.asarray(budgets) > 0)]
+            pool = ({} if self.pool is None else
+                    {"pages_used": self.pool.pages_used,
+                     "pool_pages": self.pool.num_pages})
         issue = tracing.begin("engine.decode.issue", tier=self.tier)
         ctx = teff if teff < int(self.serving.max_seq) else None
         if self.cfg.family in ("ssm", "hybrid"):
@@ -682,7 +717,7 @@ class TierEngine:
         tracing.end(sync)
         if sp:
             tracing.end(sp, k=k_steps, teff=teff, slots=slots,
-                        graph=graphed == k_steps)
+                        graph=graphed == k_steps, **pool)
         return block
 
     def _fused_recurrent(self, tokens, positions, budgets, ctx, k_steps,
@@ -870,14 +905,19 @@ class TierEngine:
         ``slots`` (R,) are the destination slot ids (duplicates only for pad
         rows carrying identical values); ``total`` (R,) is each row's true
         sequence length INCLUDING any vision prefix. A paged engine passes
-        ``pt_rows`` (R, n_pt): the KV leaves scatter THROUGH the tables
-        into the pool (only the leading ``npg`` pages, the group's reserved
-        high-water; a row's unreserved tail maps to the null page, whose
-        garbage is masked via ``pos``)."""
+        ``pt_rows`` (R, n_pt): each layer's K/V goes THROUGH the tables
+        into the pool as the layer computes it (``DecoderLM.prefill_paged``;
+        only the leading ``npg`` pages, the group's reserved high-water; a
+        row's unreserved tail maps to the null page, whose garbage is
+        masked via ``pos``). The dense pool and the families without
+        positional pages (ssm, hybrid, encdec) scatter the capacity-wide
+        cache ``prefill`` builds."""
         dev = self.device
+        slots_d = torch.as_tensor(slots, device=dev).long()
+        if pt_rows is not None:
+            return self._prefill_pages(batch, slots_d, total, pt_rows, npg)
         logits, cache1 = self.model.prefill(self.params, batch,
                                             self.serving.max_seq)
-        slots_d = torch.as_tensor(slots, device=dev).long()
         if self.cfg.family in _PADDED_FAMILIES:
             total_d = torch.as_tensor(total, device=dev)
             cap = cache1["pos"].shape[1]
@@ -890,18 +930,31 @@ class TierEngine:
         c = self.cache
         for name, one in _named_leaves(cache1):
             pool = _get(c, name)
-            bax = self._axis_by_name[name][0]
-            if name not in self._paged_names:
-                pool[_at(bax, slots_d)] = one.to(pool.dtype)
-            else:
-                page = self.serving.kv_page_size
-                one = one.reshape(one.shape[:bax + 1] + (self._n_pt, page)
-                                  + one.shape[bax + 2:])
-                pt_sl = torch.as_tensor(pt_rows[:, :npg], device=dev).long()
-                pool[_at(bax, pt_sl)] = one[_at(bax + 1, slice(0, npg))].to(
-                    pool.dtype)
-        if pt_rows is not None:
-            c["pages"][slots_d] = torch.as_tensor(pt_rows, device=dev)
+            pool[_at(self._axis_by_name[name][0], slots_d)] = one.to(
+                pool.dtype)
+        return logits
+
+    def _prefill_pages(self, batch: Dict[str, torch.Tensor],
+                       slots_d: torch.Tensor, total: np.ndarray,
+                       pt_rows: np.ndarray, npg: int) -> torch.Tensor:
+        """The paged pool's prefill: K/V written layer by layer through the
+        tables, then each row's ``pos`` (absolute positions below its true
+        length, -1 after), write index and device page table, as the
+        capacity-wide scatter leaves them."""
+        dev, c = self.device, self.cache
+        cap = int(self.serving.max_seq)
+        pt_d = torch.as_tensor(pt_rows, device=dev)
+        logits = self.model.prefill_paged(self.params, batch, c,
+                                          pt_d[:, :npg], cap)
+        s = int(batch["tokens"].shape[1]) + self._prompt_prefix(batch)
+        total_d = torch.as_tensor(total, device=dev)
+        # a prompt longer than the capacity keeps its last ``cap`` rows
+        p = torch.arange(cap, dtype=torch.int32, device=dev) + max(0, s - cap)
+        c["pos"][slots_d] = torch.where(p[None] < total_d[:, None], p[None],
+                                        -1)
+        c["index"][slots_d] = (torch.clamp(total_d, max=cap) % cap).to(
+            torch.int32)
+        c["pages"][slots_d] = pt_d
         return logits
 
     def _insert_cache(self, cache1: Dict[str, Any], slot: int) -> None:
@@ -1238,8 +1291,9 @@ class TierEngine:
             if self.pool is not None and not self._reserve_warm(job, plan):
                 # starved for pages: stop admitting (FIFO within warm hits)
                 # and let the fused block split at the pressure boundary
-                self._page_pressure = True
+                self._page_starved(job)
                 return
+            self._page_granted(job)
             if plan.get("sid"):
                 self.sessions.resume(plan["sid"])  # rows consumed this turn
             del self.waiting[i]
@@ -1934,6 +1988,24 @@ class TierEngine:
                 break
         return pool.alloc(n)
 
+    def _page_starved(self, job: Dict[str, Any]) -> None:
+        """``job``, at the head of the queue, found too few free pages:
+        admission stops here and the fused block splits at the pressure
+        boundary. Its page wait starts now, unless it already waits."""
+        self._page_pressure = True
+        job.setdefault("_page_wait", time.monotonic_ns())
+
+    def _page_granted(self, job: Dict[str, Any]) -> None:
+        """``job`` reserved its pages: a page wait it had ends (counted in
+        ``page_waits`` / ``page_wait_s``, recorded as ``engine.page_wait``
+        when the tracer is on)."""
+        t0 = job.pop("_page_wait", None)
+        if t0 is not None:
+            self.page_waits += 1
+            self.page_wait_s += (time.monotonic_ns() - t0) / 1e9
+            tracing.record("engine.page_wait", t0, rid=job["rid"],
+                           tier=self.tier)
+
     def _assign_pages(self, slot: int, pages: List[int]) -> None:
         """Record ``slot``'s page list and host page table. The DEVICE page
         table row is written by the insert path that follows."""
@@ -2085,17 +2157,24 @@ class TierEngine:
                             self.serving.max_seq)
                 pages = self._reserve_pages(self._page_need(total))
                 if pages is None:
-                    self._page_pressure = True
+                    self._page_starved(job)
                     return
+                self._page_granted(job)
                 self._assign_pages(slot, pages)
             job = self.waiting.pop(0)
             toks = np.asarray(job["tokens"])[None]  # (1, S)
             batch = self._device_batch(toks, {k: np.asarray(v)[None] for k, v
                                               in job["extras"].items()})
-            logits, cache1 = self.model.prefill(self.params, batch,
-                                                self.serving.max_seq)
-            self._insert_cache(cache1, slot)
             prefix = self._prompt_prefix(batch)
+            if self._pt is not None:
+                logits = self._prefill_insert(
+                    batch, np.asarray([slot]),
+                    np.asarray([toks.shape[1] + prefix]), self._pt[[slot]],
+                    len(self._slot_pages[slot]))
+            else:
+                logits, cache1 = self.model.prefill(self.params, batch,
+                                                    self.serving.max_seq)
+                self._insert_cache(cache1, slot)
             self._start_seq(job, slot, toks.shape[1] + prefix,
                             logits.float().cpu().numpy()[0])
 
@@ -2116,8 +2195,9 @@ class TierEngine:
                             self.serving.max_seq)
                 pages = self._reserve_pages(self._page_need(total))
                 if pages is None:
-                    self._page_pressure = True
+                    self._page_starved(job)
                     break
+                self._page_granted(job)
                 job["_pages"] = pages
                 admitted.append(job)
             jobs = admitted
@@ -2141,8 +2221,43 @@ class TierEngine:
                 sig += (j,)  # one group per request (see _PADDED_FAMILIES)
             groups.setdefault(sig, []).append(job)
         for sig, grp in groups.items():
-            slots = [free.pop(0) for _ in grp]
-            self._admit_group(grp, slots, sig[0])
+            most = self._group_rows(self._prompt_prefix(grp[0]["extras"])
+                                    + sig[0])
+            for at in range(0, len(grp), most):
+                part = grp[at:at + most]
+                slots = [free.pop(0) for _ in part]
+                self._admit_group(part, slots, sig[0])
+
+    def _group_rows(self, length: int) -> int:
+        """Most rows a prefill group of ``length`` positions (vision prefix
+        + bucket) carries: the largest power of two whose rows x length
+        stay within the engine's prefill budget (every slot when it has
+        none, or when the budget holds them all)."""
+        budget = self._prefill_budget()
+        rows = 1
+        while rows < len(self.slots) and 2 * rows * length <= budget:
+            rows *= 2
+        return len(self.slots) if rows >= len(self.slots) else rows
+
+    def _prefill_budget(self) -> float:
+        """Positions (rows x length) one prefill group may carry. Unless set
+        (``prefill_positions``), it is read on the card at the first group,
+        once every engine on the device holds its weights and pool: the
+        device memory still free (``torch.cuda.mem_get_info`` and the
+        allocator's cached, unused blocks) less ``PREFILL_RESERVE``, over
+        the activation bytes a prefill holds a position
+        (:func:`prefill_bytes_per_position`). Unbounded on the host."""
+        if self.prefill_positions is None:
+            if self.device.type != "cuda":
+                self.prefill_positions = 0
+            else:
+                free, _ = torch.cuda.mem_get_info(self.device)
+                cached = (torch.cuda.memory_reserved(self.device)
+                          - torch.cuda.memory_allocated(self.device))
+                left = free + cached - PREFILL_RESERVE
+                self.prefill_positions = max(
+                    1, int(left // prefill_bytes_per_position(self.cfg)))
+        return float(self.prefill_positions or "inf")
 
     def _admit_group(self, jobs: List[dict], slots: List[int],
                      bucket: int) -> None:
@@ -2175,9 +2290,11 @@ class TierEngine:
         slots_arr = np.asarray(slots + [slots[0]] * (rp - r), np.int32)
         tracing.end(stage)
         issue = tracing.begin("engine.prefill.issue", tier=self.tier)
+        kv_pages = 0
         if self._pt is not None:
             # pad rows replicate row 0's page table too
             pt_rows = self._pt[slots_arr]
+            kv_pages = sum(len(self._slot_pages[s]) for s in slots)
             npg = max(1, max(len(self._slot_pages[s]) for s in slots))
             logits = self._prefill_insert(batch, slots_arr, total, pt_rows,
                                           npg)
@@ -2194,7 +2311,8 @@ class TierEngine:
         if sp:
             tracing.end(sp, bucket=bucket, rows_padded=rp, rows=[
                 (j["rid"], len(j["tokens"]), "patches" in j["extras"],
-                 j["t"]) for j in jobs])
+                 j["t"]) for j in jobs],
+                kv_pages=kv_pages)
 
     # -- sampling / stepping ------------------------------------------------
 

@@ -23,7 +23,9 @@ A site reads::
 ``end`` closes the span it is given and forgets, unrecorded, any span
 opened inside it that is still open (one an exception skipped), so an
 outer span that always ends keeps the nesting whole. The serving path
-runs on one thread, and so does the tracer.
+runs on one thread, and so does the tracer. A span whose start and end
+fall in different outer spans is recorded whole when it ends, with no
+parent (:func:`record`); it is the one span that does not nest.
 
 The profiler stamps its events on ``time.time_ns()``; a reader maps a
 span onto them with the offset its device trace was mapped with
@@ -45,8 +47,12 @@ stretch of the device by the innermost span open at its middle):
 * ``engine.step`` (tier): one ``TierEngine.step``. Idle.
 * ``engine.prefill_group`` (tier): ``bucket``, ``rows_padded`` and
   ``rows``, one ``(rid, text tokens, has image, received)`` a request,
-  ``received`` being when the engine was given it.
-  ``engine.queue_wait_ms``, ``engine.prefill_device_busy_pct``; idle.
+  ``received`` being when the engine was given it; ``kv_pages``, the
+  pool pages the group's K/V was written into (its rows' reserved pages;
+  0 off a paged pool of positional pages).
+  ``engine.queue_wait_ms``, ``engine.prefill_device_busy_pct``,
+  ``engine.page_wait_ms`` (``kv_pages`` marks a program that records
+  page waits); idle.
   Its children, each read by idle:
   ``engine.prefill.stage`` (the host batch and its copy to the device),
   ``engine.prefill.issue`` (the prefill and the cache scatter launched),
@@ -55,7 +61,10 @@ stretch of the device by the innermost span open at its middle):
 * ``engine.decode_block`` (tier): ``k``, ``teff`` and ``slots``, one
   ``(rid, position, budget)`` a live slot; ``graph``, true when every
   step of the block was a CUDA graph's replay (the engine's
-  ``decode_graph_steps`` / ``decode_eager_steps`` count the steps).
+  ``decode_graph_steps`` / ``decode_eager_steps`` count the steps); on a
+  paged engine ``pages_used`` (the pool's pages in use as the block
+  starts) and ``pool_pages`` (its pages, the null page left out), whose
+  ratio on the remote tier ``engine.kv_pool_used_pct`` reads.
   ``engine.decode_device_busy_pct``, ``engine.decode_issue_ms`` (its
   ``k``); idle. Its children: ``engine.decode.issue`` (entry to the last
   launch of the k steps: the inputs' copies to the device and the k
@@ -64,6 +73,12 @@ stretch of the device by the innermost span open at its middle):
   ``engine.decode.sync`` (the token block copied to the host; idle).
 * ``engine.emit`` (tier): the block's tokens handed out, callbacks
   included. Idle.
+* ``engine.page_wait`` (tier, rid; recorded by :func:`record`, no
+  parent): from the admission pass in which the request, at the head of
+  the engine's queue, found too few free pages in the pool to the one
+  that reserved them. The engine also counts every such wait
+  (``page_waits``) and its seconds (``page_wait_s``), traced or not.
+  ``engine.page_wait_ms`` (0 for an admitted row that never waited).
 """
 from __future__ import annotations
 
@@ -142,6 +157,23 @@ def end(sid: int, rid: Optional[int] = None, **attrs) -> None:
         return
     _spans.append(Span(name, t0, t1, sid, parent,
                        rid0 if rid is None else rid, tier, attrs))
+
+
+def record(name: str, t0_ns: int, rid: Optional[int] = None,
+           tier: Optional[str] = None, **attrs) -> int:
+    """Record a span that began at ``t0_ns`` (``time.monotonic_ns()``) and
+    ends now, with no parent: one whose start and end fall in different
+    outer spans. Returns its id, or 0 when the tracer is off."""
+    global dropped
+    if not (_enabled or _profiler._is_profiler_enabled):
+        return 0
+    sid = next(_ids)
+    if len(_spans) >= CAPACITY:
+        dropped += 1
+        return sid
+    _spans.append(Span(name, t0_ns, time.monotonic_ns(), sid, 0, rid, tier,
+                       attrs))
+    return sid
 
 
 def records(t0: Optional[float] = None,

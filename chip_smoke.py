@@ -44,7 +44,15 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      warp-specialised kernel pinned at hd 128 in turns with the routed
      wgmma kernel, a record. With ``--parent-csrc DIR`` the attention
      kernels built from DIR (another tree's csrc/) are timed in turns with
-     this tree's at every timed shape;
+     this tree's at every timed shape. The paged kernel with extents
+     (``lens``) is held to its plain version (and, lean, its split mirror
+     at the device's split length) at extents 0, 1, a page - 1, a page, a
+     split +- 1 and T, a dead slot exactly 0, and without them bitwise to
+     the parent's kernel; it is timed at the benchmark cells' ragged decode
+     (phi-3-vision B 32 T 4096 with 12 live slots of 2650-3960 rows, the
+     Qwen tiers at T 2048 with 3 live) and at full occupancy, with
+     extents, without, on the parent's kernel and under each plan of
+     EXTENT_PLANS, beside the live rows' byte bound;
   4. at full width and depth (qwen2-vl-2b edge, qwen2.5-vl-7b cloud, bf16,
      random weights from a seed): one prefill batch of the serving shapes
      through attn_impl "auto" and "cuda" on the same weights (logit
@@ -69,8 +77,11 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      the warm against the cold prefill charge and one resumed turn's
      first-token logits against a cold prefill; (b) a full-width
      qwen2-vl-2b request moved paged -> dense and dense -> paged through
-     the wire (size printed, leaves bitwise) finishes with the tokens it
-     decodes alone on the target kind; (c) at reduced size in f32 with the
+     the wire (size printed, leaves bitwise) finishes with the tokens of
+     the same move made in process, its source blocks' tokens those it
+     decodes alone on the source kind (the paged decode's extents round a
+     bf16 sum apart from the dense kernel's: the tokens both kinds share
+     alone are printed); (c) at reduced size in f32 with the
      kernels ("cuda"), a prefix hit and a resumed session equal cold
      serving, paged and dense, and a temperature-0.7 migration equals the
      unmigrated run;
@@ -196,7 +207,11 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
      context 1400, bucket 1536, k 8: the benchmark cell's decode shape),
      eager (the engine's graphs off) against CUDA graphs on one engine, in
      turns after two warm blocks each: block time by CUDA events, the host
-     issue time by the engine's span, tokens equal in both modes; then one
+     issue time by the engine's span, tokens equal in both modes; the
+     graphed block with the extents dropped at the model's paged decode
+     dispatcher and on again (nothing to skip at full occupancy: the
+     control of the paged kernel's extents), the rows the live slots
+     attended against the grid's; then one
      turn of each under the traced benchmark run's profiler;
   7. ``python -m repro_torch.launch.serve --requests 4 --max-new 4``, then
      with ``--sessions 2 --turns 2 --prefix-cache-mb 64 --migrate``, which
@@ -312,7 +327,7 @@ def phase_device():
 def _ptxas_entries(log: str):
     """``{kernel instance: (registers, spill bytes)}`` from ``-Xptxas -v``
     output; an instance is named ``base<template args>`` (e.g.
-    ``flash_bf16_wgmma_kernel<64>``, ``decode_bf16_kernel<256,16,1>``)."""
+    ``flash_bf16_wgmma_kernel<64>``, ``decode_bf16_kernel<256,16,1,0>``)."""
     entries, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
@@ -1059,6 +1074,235 @@ def check_decode_paged(records):
             time_decode(records, True, label, h, kh, t, worst, gen, hd=hd)
     records["decode_attention_paged"]["instantiations"] = _instantiations(
         held)
+
+
+# The paged kernel with extents (lens): (label, b, h, kh, hd, page, t,
+# extents). Extents at 0 (a dead slot: zeros), 1, a page - 1, a page, a
+# split of 1024 +- 1 and T; the rest of the batch at T - 5.
+EXTENT_CASES = [
+    ("phi-3-vision hd96 32/32 T=4096", 8, 32, 32, 96, 256, 4096,
+     (0, 1, 255, 256, 1023, 1025, 3960, 4096)),
+    ("edge hd128 12/2 T=2048", 8, 12, 2, 128, 256, 2048,
+     (0, 1, 255, 256, 1023, 1025, 1500, 2048)),
+    ("cloud hd128 28/4 T=2048", 8, 28, 4, 128, 256, 2048,
+     (2048, 1, 0, 256, 1023, 1025, 700, 255)),
+    ("cloud hd128 28/4 T=390 page 16", 4, 28, 4, 128, 16, 390,
+     (390, 15, 0, 17)),
+    ("recurrentgemma hd256 16/1 (lean) T=4096", 8, 16, 1, 256, 256, 4096,
+     (0, 1, 255, 256, 1023, 1025, 3000, 4096)),
+]
+# ragged decode at the benchmark cells' shapes (B 32, page 256): (label, h,
+# kh, hd, T, live extents (lo, hi) or a fixed value, live slots); dead
+# slots keep a stale table-less row (their pages are the null page, their
+# positions the last request's), as ``TierEngine._release_pages`` leaves them
+EXTENT_TIMED = [
+    ("phi3v cloud, 12 live of 32", 32, 32, 96, 4096, (2650, 3960), 12),
+    ("qwen cloud, 3 live of 32", 28, 4, 128, 2048, (900, 1900), 3),
+    ("qwen edge, 3 live of 32", 12, 2, 128, 2048, (900, 1900), 3),
+    # full occupancy, nothing to skip: phase 16's shape, and phi3v's
+    ("qwen cloud, 32 live at 1401", 28, 4, 128, 1536, 1401, 32),
+    ("qwen edge, 32 live at 1401", 12, 2, 128, 1536, 1401, 32),
+    ("phi3v cloud, 32 live", 32, 32, 96, 4096, (2650, 3960), 32),
+]
+#: least split rows timed beside the default (``PLAN_MIN_ROWS``)
+EXTENT_PLANS = (32, 128)
+
+
+def _extent_case(b, h, kh, hd, page, t, extents, dtype, gen, *, layers=1,
+                 live=None):
+    """Paged inputs where slot i attends rows [0, extents[i]) (positions
+    0..e-1, the query at e - 1; its pages reserved, the rest the null page);
+    a slot whose extent is 0 (or not in ``live``) is dead: its table is the
+    null page and its positions a stale request's 0..t-1."""
+    import torch
+
+    ext = [int(e) for e in extents]
+    used = [-(-e // page) for e in ext]
+    n_pages = sum(used) + 1
+    stack = _rand((2, layers, n_pages, page, kh, hd), dtype, gen)
+    q = _rand((b, 1, h, hd), dtype, gen)
+    n_pt = -(-t // page)
+    pages = torch.zeros((b, n_pt), dtype=torch.int32)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(b * 31 + t)) + 1
+    at = 0
+    for i, u in enumerate(used):
+        pages[i, :u] = perm[at:at + u].to(torch.int32)
+        at += u
+    pos = torch.full((b, t), -1, dtype=torch.int32)
+    pq = torch.zeros((b,), dtype=torch.int32)
+    for i, e in enumerate(ext):
+        if e > 0:
+            pos[i, :e] = torch.arange(e, dtype=torch.int32)
+            pq[i] = e - 1
+        else:  # dead: stale positions behind the null page
+            pos[i] = torch.arange(t, dtype=torch.int32)
+            pq[i] = t - 1
+    lens = torch.tensor(ext, dtype=torch.int32)
+    dev = lambda x: x.cuda()  # noqa: E731
+    return (q, stack, dev(pages), dev(pq), dev(pos), dev(lens))
+
+
+def _plan_rows(ext, b, h, kh, hd, t, page, dtype):
+    """(split rows, items, blocks) of the kernel's extent plan at its
+    defaults, as the wrapper and the device choose them."""
+    from repro_torch.kernels.decode_attention import (
+        MAX_SPLIT_PAGES, MAX_SPLIT_ROWS, PLAN_MIN_ROWS, plan_blocks,
+        plan_split_rows, resident_blocks)
+    rmax = MAX_SPLIT_ROWS
+    while -(-rmax // page) + 1 > MAX_SPLIT_PAGES:
+        rmax //= 2
+    rmin = min(PLAN_MIN_ROWS, rmax)
+    blocks = plan_blocks(b, kh, t, resident_blocks(0, dtype, hd, h // kh),
+                         rmin, rmax)
+    ext = [min(int(e), t) for e in ext]
+    rows = plan_split_rows(ext, kh, blocks, rmin, rmax)
+    return rows, kh * sum(-(-e // rows) for e in ext), blocks
+
+
+def check_decode_extents(records):
+    """The paged kernel with extents against its plain version (and, lean,
+    its split mirror at the plan's split length), a dead slot's output
+    exactly 0; without extents bitwise the parent's kernel (with
+    ``--parent-csrc``); then the cells' ragged shapes timed with extents,
+    without, and on the parent's kernel, beside the live rows' byte bound."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_paged_cuda, decode_attention_paged_plain,
+        decode_attention_split_plain, lean_instance)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    held = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, b, h, kh, hd, page, t, ext in EXTENT_CASES:
+            q, stack, pages, pq, pos, lens = _extent_case(
+                b, h, kh, hd, page, t, ext, dtype, gen)
+            kp, vp = stack[0, 0], stack[1, 0]
+            got = decode_attention_paged_cuda(q, kp, vp, pages, pq, pos,
+                                              lens=lens)
+            want = decode_attention_paged_plain(q, kp, vp, pages, pq, pos,
+                                                lens=lens)
+            mirror = None
+            if dtype == torch.bfloat16 and lean_instance(hd, h // kh):
+                rows = _plan_rows(ext, b, h, kh, hd, t, page, dtype)[0]
+                idx = pages.long()
+                kc = kp[idx].reshape(b, -1, kh, hd)[:, :t]
+                vc = vp[idx].reshape(b, -1, kh, hd)[:, :t]
+                mirror = decode_attention_split_plain(
+                    q, kc, vc, pq, pos, split_rows=rows, lens=lens,
+                    p_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            err = _hold(f"decode_attention_paged extents {label}", got, want,
+                        dtype, mirror=mirror)
+            for i, e in enumerate(ext):
+                if e == 0 and bool(got[i].abs().max() != 0):
+                    fail(f"extents {label} {dtype}: a slot of extent 0 is not "
+                         f"zero")
+            _held(held, dtype, hd, h // kh, err)
+            # forced splits: each a multiple of the page and inside one
+            for rows in (page, 1024):
+                forced = decode_attention_paged_cuda(
+                    q, kp, vp, pages, pq, pos, lens=lens, split_rows=rows)
+                _hold(f"decode_attention_paged extents {label} split {rows}",
+                      forced, want, dtype)
+            if PARENT_LIBS and dtype == torch.bfloat16:
+                # without extents the launch is the parent's, bit for bit
+                ours = decode_attention_paged_cuda(q, kp, vp, pages, pq, pos)
+                par = _on_parent("decode_attention", [
+                    lambda: decode_attention_paged_cuda(q, kp, vp, pages, pq,
+                                                        pos)])[0]()
+                torch.cuda.synchronize()
+                if not torch.equal(ours, par):
+                    fail(f"extents {label}: without lens the kernel differs "
+                         f"from the parent's")
+                print(f"  decode_attention_paged {label}: without lens "
+                      f"bitwise the parent's kernel")
+    records["decode_attention_paged"]["extent_instantiations"] = (
+        _instantiations(held))
+    for case in EXTENT_TIMED:
+        time_extents(records, case, gen)
+
+
+def time_extents(records, case, gen):
+    """Device time a call at one ragged shape (bf16, B 32, page 256) from
+    replayed CUDA graphs over rotated layers, in turns: with extents,
+    without, the parent's kernel (without), and back; then each plan of
+    EXTENT_PLANS with extents. Bound: the live slots' K/V rows read once,
+    q read and out written once, over 3.35 TB/s."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_paged_cuda)
+    label, h, kh, hd, t, span, n_live = case
+    b, page, dt = 32, 256, torch.bfloat16
+    rng = torch.Generator().manual_seed(len(label) * 977 + t)
+    if isinstance(span, tuple):
+        live = torch.randint(span[0], span[1] + 1, (n_live,), generator=rng)
+    else:
+        live = torch.full((n_live,), span)
+    ext = [0] * b
+    for i, slot in enumerate(torch.randperm(b, generator=rng)[:n_live]):
+        ext[int(slot)] = int(live[i])
+    live_bytes = sum(ext) * kh * hd * 2 * 2
+    layers = max(2, -(-100_000_000 // max(live_bytes, 1)) + 1)
+    q, stack, pages, pq, pos, lens = _extent_case(b, h, kh, hd, page, t, ext,
+                                                  dt, gen, layers=layers)
+
+    def calls(**kw):
+        return [lambda i=i: decode_attention_paged_cuda(
+            q, stack[0, i], stack[1, i], pages, pq, pos, **kw)
+            for i in range(layers)]
+
+    with_lens, without = calls(lens=lens), calls()
+    parent = _on_parent("decode_attention", without)
+    replays = max(10, -(-280 // layers))
+    e1, outs = graph_time_ms(with_lens, replays)
+    n1, base = graph_time_ms(without, replays)
+    p1 = graph_time_ms(parent, replays)[0] if parent else None
+    p2 = graph_time_ms(parent, replays)[0] if parent else None
+    n2, _ = graph_time_ms(without, replays)
+    e2, _ = graph_time_ms(with_lens, replays)
+    live_rows = [i for i, e in enumerate(ext) if e > 0]
+    dead = [i for i, e in enumerate(ext) if e == 0]
+    for i in range(layers):
+        if not torch.allclose(outs[i][live_rows].float(),
+                              base[i][live_rows].float(), rtol=2e-2,
+                              atol=2e-2):
+            fail(f"extents {label}: live slots differ with and without lens")
+        if dead and bool(outs[i][dead].abs().max() != 0):
+            fail(f"extents {label}: a dead slot is not zero")
+    plans = {}
+    for rmin in EXTENT_PLANS:  # the launches a graph captures read it
+        default, da.PLAN_MIN_ROWS = da.PLAN_MIN_ROWS, rmin
+        try:
+            plans[rmin] = graph_time_ms(calls(lens=lens), replays)[0]
+        finally:
+            da.PLAN_MIN_ROWS = default
+    nbytes = live_bytes + 2 * b * h * hd * 2 + b * t * 4
+    bd = nbytes / HBM_BYTES_PER_S * 1e3
+    dev, no_lens = (e1 + e2) / 2, (n1 + n2) / 2
+    par = (p1 + p2) / 2 if parent else None
+    rows, items, blocks = _plan_rows(ext, b, h, kh, hd, t, page, dt)
+    grid_rows = b * t
+    print(f"  decode_attention_paged extents {label} (B {b}, T {t}, hd {hd} "
+          f"group {h // kh}, {n_live} live, {sum(ext)} live rows of "
+          f"{grid_rows}, {layers} layers rotated): with lens device "
+          f"{dev * 1e3:.2f} us ({e1 * 1e3:.2f}, {e2 * 1e3:.2f}; split "
+          f"{rows} rows, {items} items on {blocks} blocks), without "
+          f"{no_lens * 1e3:.2f} us ({n1 * 1e3:.2f}, {n2 * 1e3:.2f})"
+          + (f", parent's kernel {par * 1e3:.2f} us ({p1 * 1e3:.2f}, "
+             f"{p2 * 1e3:.2f})" if par else "")
+          + f", bound {bd * 1e3:.3f} us (live bytes), {bd / dev:.1%} of it "
+          f"with lens, {bd / no_lens:.1%} without; with the least split "
+          f"at " + ", ".join(f"{k} rows {v * 1e3:.2f} us"
+                             for k, v in plans.items()))
+    records["decode_attention_paged"].setdefault("extents", []).append({
+        "shape": label, "t": t, "live": n_live, "live_rows": sum(ext),
+        "grid_rows": grid_rows, "device_ms": dev, "no_lens_ms": no_lens,
+        "parent_ms": par, "bound_ms": bd, "share_of_bound": bd / dev,
+        "split_rows": rows, "items": items, "blocks": blocks,
+        "least_split_ms": plans})
 
 
 def time_decode(records, paged, label, h, kh, t, worst, gen, hd=128,
@@ -1977,7 +2221,12 @@ def migrate_full_width(records, built):
     """Phase 8 (b): full width, bf16, two qwen2-vl-2b engines with the same
     max_batch, one paged and one dense: a request decoded two fused blocks
     on one, moved through the wire into the other, finishes with the
-    tokens it decodes alone on the target kind, both directions."""
+    tokens of the same move made in process (``extract_slot`` straight
+    into ``inject_slot``), both directions, and its first two blocks' tokens
+    are those it decodes alone on the source kind. The paged decode reads
+    each slot's extent, so its bf16 sums split where the dense kernel's do
+    not and the two kinds alone may part at a near tie: each kind is held
+    to itself, and the tokens the two share alone are printed."""
     import numpy as np
     import torch
 
@@ -1994,12 +2243,22 @@ def migrate_full_width(records, built):
     svs = {"paged": ServingConfig(max_batch=4, max_seq=512, paged=True,
                                   kv_page_size=64, fused_steps=8),
            "dense": ServingConfig(max_batch=4, max_seq=512, fused_steps=8)}
+
+    def engine(kind):
+        return TierEngine(model, params, svs[kind])
+
+    def drain(eng):
+        return {s.rid: list(s.generated) for s in eng.run_until_drained()}[0]
+
     ops.reset_launches()
-    alone = {kind: _alone(TierEngine(model, params, sv), prompt, 40)
-             for kind, sv in svs.items()}
+    alone = {kind: _alone(engine(kind), prompt, 40) for kind in svs}
+    shared = next((i for i, (a, b) in enumerate(zip(alone["paged"],
+                                                    alone["dense"]))
+                   if a != b), min(len(alone["paged"]), len(alone["dense"])))
+    print(f"  {cfg.name} bf16 alone: paged (extents) and dense share their "
+          f"first {shared} of {len(alone['dense'])} tokens")
     for src, dst in (("paged", "dense"), ("dense", "paged")):
-        donor = _alone(TierEngine(model, params, svs[src]), prompt, 40,
-                       steps=2)
+        donor = _alone(engine(src), prompt, 40, steps=2)
         payload = donor.extract_slot(0, remove=True)
         t0 = time.perf_counter()
         wire = payload.to_bytes()
@@ -2010,22 +2269,32 @@ def migrate_full_width(records, built):
         for name, leaf in payload.leaves.items():
             if not torch.equal(_bits(back.leaves[name]), _bits(leaf.cpu())):
                 fail(f"migrate {src}->{dst}: leaf {name} changed on the wire")
-        target = TierEngine(model, params, svs[dst])
+        target = engine(dst)
         target.inject_slot(back)
-        got = {s.rid: list(s.generated)
-               for s in target.run_until_drained()}[0]
+        got = drain(target)
         if target.prefill_tokens != 0:
             fail(f"migrate {src}->{dst}: the target prefilled")
-        if got != alone[dst]:
-            fail(f"migrate {src}->{dst}: {got} != alone on {dst} "
-                 f"{alone[dst]}")
-        print(f"  migrate {cfg.name} bf16 {src} -> {dst} after "
-              f"{len(payload.seq.generated)} tokens: wire "
-              f"{len(wire) / 1e6:.3f} MB (to_bytes {t_out * 1e3:.1f} ms, "
-              f"from_bytes {t_in * 1e3:.1f} ms), leaves bitwise, "
-              f"{len(got)} tokens equal to the request alone on {dst}")
+        moved = len(payload.seq.generated)
+        if got[:moved] != alone[src][:moved]:
+            fail(f"migrate {src}->{dst}: the source's {moved} tokens "
+                 f"{got[:moved]} != alone on {src} {alone[src][:moved]}")
+        direct = engine(dst)
+        direct.inject_slot(_alone(engine(src), prompt, 40, steps=2)
+                           .extract_slot(0, remove=True))
+        want = drain(direct)
+        if got != want:
+            fail(f"migrate {src}->{dst}: {got} != the same move in process "
+                 f"{want}")
+        print(f"  migrate {cfg.name} bf16 {src} -> {dst} after {moved} "
+              f"tokens: wire {len(wire) / 1e6:.3f} MB (to_bytes "
+              f"{t_out * 1e3:.1f} ms, from_bytes {t_in * 1e3:.1f} ms), "
+              f"leaves bitwise, {len(got)} tokens equal to the move in "
+              f"process, the first {moved} to the request alone on {src}; "
+              f"{sum(a == b for a, b in zip(got, alone[dst]))} of them at "
+              f"the positions of the request alone on {dst}")
     counts = ops.launches()
-    print(f"  migration runs (two alone, two moved): launches {counts}")
+    print(f"  migration runs (two alone, two moved, two moved in process):"
+          f" launches {counts}")
     for name in ("decode_attention", "decode_attention_paged"):
         if counts[name] <= 0:
             fail(f"migration never launched {name}")
@@ -4508,6 +4777,39 @@ def time_decode_block(arch, seed, rounds=3):
     if eng.decode_graph_steps - steps0 != 2 * rounds * k:
         fail(f"phase 16 {arch}: {eng.decode_graph_steps - steps0} graphed "
              f"steps in {2 * rounds} graphed blocks of {k}")
+    # graphed without extents (every slot is live here: nothing to skip),
+    # then with them again, each after its own capture and a warm block.
+    # Without extents the kernel splits the rows elsewhere, so its bf16
+    # sums round apart and a near tie may pick another token: its blocks
+    # must equal its own first, and the tokens that differ are counted
+    from repro_torch.models import attention as attn_mod
+
+    real = attn_mod.decode_attention_paged
+
+    def every_row(*args, lens=None, **kw):  # the extents dropped
+        return real(*args, **kw)
+
+    flips = 0
+    try:
+        for extents, mode in ((False, "graph, no extents"),
+                              (True, "graph, extents again")):
+            attn_mod.decode_attention_paged = real if extents else every_row
+            eng._graphs.clear()  # new graphs in a new pool, as after restore
+            eng._graph_seen.clear()
+            eng._graph_pool = None
+            times[mode] = []
+            ref = want
+            for i in range(2 + rounds):
+                out, ms, issue = block(True)
+                if not extents and i == 0:
+                    ref = out
+                    flips = int((out != want).sum())
+                if not np.array_equal(out, ref):
+                    fail(f"phase 16 {arch}: {mode} block's tokens differ")
+                if i >= 2:
+                    times[mode].append((ms, issue))
+    finally:
+        attn_mod.decode_attention_paged = real
     # the same turns under the benchmark's traced-run profiler (CUDA
     # activity only): what it adds to each mode's issue time
     from torch.profiler import ProfilerActivity, profile
@@ -4519,7 +4821,8 @@ def time_decode_block(arch, seed, rounds=3):
             times["graph profiled" if graphs else "eager profiled"].append(
                 (ms, issue))
     counters = (eng.decode_graph_steps, eng.decode_eager_steps,
-                eng.decode_graph_captures)
+                eng.decode_graph_captures, eng.decode_rows_live,
+                eng.decode_rows_grid, flips)
     del eng, model
     torch.cuda.empty_cache()
     return times, counters
@@ -4536,7 +4839,8 @@ def phase_decode_graphs():
                    text=True).stdout.strip()
     g = GRAPH_BLOCK
     for seed, arch in enumerate(("qwen2-vl-2b", "qwen2.5-vl-7b")):
-        times, (gs, es, caps) = time_decode_block(arch, seed)
+        times, (gs, es, caps, live, grid, flips) = time_decode_block(arch,
+                                                                     seed)
         med = {m: (statistics.median(t[0] for t in v),
                    statistics.median(t[1] for t in v))
                for m, v in times.items()}
@@ -4547,8 +4851,12 @@ def phase_decode_graphs():
               f"{med['graph'][0]:.2f} ms ({med['graph'][0] / g['k']:.3f} a "
               f"step, issue {med['graph'][1]:.2f} ms), "
               f"{med['eager'][0] / med['graph'][0]:.2f}x; tokens equal; "
-              f"graph steps {gs}, eager steps {es}, captures {caps} "
-              f"[{limit}]")
+              f"graph steps {gs}, eager steps {es}, captures {caps}; "
+              f"graphed without extents "
+              f"{med['graph, no extents'][0]:.2f} ms ({flips} of "
+              f"{g['batch'] * g['k']} tokens another), with them again "
+              f"{med['graph, extents again'][0]:.2f} ms; rows live {live} "
+              f"of the grid's {grid} ({live / grid:.1%}) [{limit}]")
         for m, v in times.items():
             print(f"    {m}: " + ", ".join(f"{a:.2f}/{i:.2f}" for a, i in v)
                   + " (block ms / issue ms, in turn order)")
@@ -4626,6 +4934,7 @@ def main() -> None:
         check_image(records)
         check_decode_dense(records)
         check_decode_paged(records)
+        check_decode_extents(records)
         check_flash(records)
     if phases & {4, 5, 8, 9} and 3 not in phases:
         fail("phases 4, 5, 8 and 9 record launches into phase 3's kernel "

@@ -107,6 +107,28 @@
 //   merges the splits: M = max m_s, out = sum 2^(m_s-M) acc_s /
 //   max(sum 2^(m_s-M) l_s, 1e-30). It is a programmatic dependent launch:
 //   set up while the split grid runs, it waits for it in griddepcontrol.wait.
+// * Extents (decode_attention_extent_launch; the engine's fused decode
+//   step). lens[b] is the number of leading rows slot b attends: rows t >=
+//   min(lens[b], T) are excluded exactly as rows past T are (weight 0, not
+//   in the max, never read), and a slot with lens[b] <= 0 reads nothing and
+//   returns zeros. The grid is then fixed when the launch is issued (a CUDA
+//   graph captures it while the extents change from replay to replay): N
+//   blocks, at least as many as the SMs hold at once and as B * K splits
+//   of the largest length would make. Block i takes item i of a work list
+//   of (slot, KV head, split) items, and blocks past the last item exit at
+//   once. Slot b's extent e_b is cut into ceil(e_b / R) splits of R rows,
+//   and the list is slot-major, so item w belongs to the slot whose prefix
+//   sum of K * ceil(e_b / R) passes w. R is chosen on the device from the
+//   extents: the least multiple of 32 rows from rmin (64) up to the split
+//   cap whose items fit the N blocks, so the live rows fill the SMs
+//   whether 3 or 32 slots are live, and no block loops (a loop over items
+//   held a third more registers in every instance). Each warp of a block,
+//   and of the
+//   combine, computes the plan itself from lens (B loads, a few shuffles;
+//   every block gets the same integers), so no plan crosses the device.
+//   Every item goes through the workspace (row: item * G + head), and the
+//   combine merges the first ceil(e_b / R) splits of its slot: none for a
+//   dead slot, whose output is 0.
 //
 // Masked and all-masked rows stay exact. A masked score is -1e30 and m
 // starts at -1e30, so a masked entry weighs 2^0 = 1 as long as nothing is
@@ -115,8 +137,9 @@
 // and its slot holds zeros. Every split holds at least one row below T, so
 // on a slot whose entries are all masked every split has m = -1e30 and
 // weight 1 in the merge, and the output is the mean of the T value rows, as
-// in the XLA path. A stream or warp that received no row has l = 0 and
-// acc = 0 and adds nothing.
+// in the XLA path (without extents; with them, the mean of the slot's
+// extent, and zeros for an extent of 0). A stream or warp that received no
+// row has l = 0 and acc = 0 and adds nothing.
 //
 // The C code allocates nothing and never synchronises, so a launch can be
 // captured in a CUDA graph.
@@ -145,13 +168,192 @@ struct Args {
   const int* pos_c;     // (B, >=T), row stride pc_sb
   const int* pages;     // (B, >=ceil(T/page)), row stride pg_sb (paged only)
   void* out;            // (B, 1, H, hd) contiguous
-  float* ws_acc;        // (B, H, splits, hd) partial sums (splits > 1)
-  float* ws_ml;         // (B, H, splits, 2): m (base 2), l
+  float* ws_acc;        // (B, H, splits, hd) partial sums (splits > 1);
+                        // with extents (items, G, hd)
+  float* ws_ml;         // (B, H, splits, 2): m (base 2), l; extents (items, G, 2)
+  const int* lens;      // (B,) rows each slot attends, or nullptr (all T)
   int H, K, hd, T, page, page_shift, window, rows, splits, vec;
+  int B, rmin, target;  // extents: slots, least split, the split grid's blocks
   int64_t k_sb, k_st, k_sh, v_sb, v_st, v_sh;  // element strides
   int64_t pc_sb, pg_sb;
   float scale2;         // hd^-0.5 * log2(e)
 };
+
+// One block's work: the rows [t_begin, t_end) of slot b, KV head kh;
+// `unit` is its split (without extents) or its item of the plan (with them).
+struct Work {
+  int b, kh, unit, t_begin, t_end;
+};
+
+// The plan's item of this block (slot, KV head, item), kept in shared
+// memory from the plan to the merge, so that no register holds it through
+// the main loop (without extents blockIdx plays that part).
+__device__ __forceinline__ int* work_slot() {
+  __shared__ int id[3];
+  return id;
+}
+
+// This block's (slot, KV head, unit), read where the result is written.
+template <bool EXT>
+__device__ __forceinline__ void work_id(int& b, int& kh, int& unit) {
+  if constexpr (!EXT) {
+    unit = blockIdx.x;
+    kh = blockIdx.y;
+    b = blockIdx.z;
+  } else {
+    const int* id = work_slot();
+    b = id[0];
+    kh = id[1];
+    unit = id[2];
+  }
+}
+
+// The first workspace row of a piece of work's heads (rows row0 + g * step)
+// and, without extents and with one split, that it writes the output.
+struct Dest {
+  int64_t head0, row0;
+  int step;
+  bool direct;
+};
+
+template <bool EXT>
+__device__ __forceinline__ Dest dest(const Args& a, int G) {
+  int b, kh, unit;
+  work_id<EXT>(b, kh, unit);
+  Dest d;
+  d.head0 = (int64_t)b * a.H + (int64_t)kh * G;
+  if constexpr (EXT) {
+    d.row0 = (int64_t)unit * G;
+    d.step = 1;
+    d.direct = false;
+  } else {
+    d.row0 = d.head0 * a.splits + unit;
+    d.step = a.splits;
+    d.direct = a.splits == 1;
+  }
+  return d;
+}
+
+// ---------------------------------------------------------------------------
+// the extent plan (see the note at the top); warp-wide, every lane of a full
+// warp gets the result
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int extent(const Args& a, int b) {
+  return min(max(a.lens[b], 0), a.T);
+}
+
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// the items of splits of r rows
+__device__ __forceinline__ int plan_items(const Args& a, int r, int lane) {
+  int n = 0;
+  for (int b = lane; b < a.B; b += 32) n += (extent(a, b) + r - 1) / r;
+  return warp_sum(n) * a.K;
+}
+
+// the split length R: rmin if its items fit the split grid (`target`
+// blocks), else the least multiple of 32 rows (a bf16 tile) up to rows
+// whose items fit, so that the items fill the grid (powers of two left it a
+// third empty at full occupancy, 18% slower). It is every block's latency
+// before its first load, so one pass over lens gives rmin's items and two
+// bounds: nothing below K E / target fits (E the live rows), and 32 ceil(K
+// E / (target - K n) / 32) does (n live slots, each at most one split more
+// than its rows over R); between them a bisection of at most a few steps.
+__device__ __forceinline__ int plan_rows(const Args& a, int lane) {
+  if (a.rmin >= a.rows) return a.rows;
+  int items = 0, rows = 0, live = 0;
+  for (int b = lane; b < a.B; b += 32) {
+    const int e = extent(a, b);
+    items += (e + a.rmin - 1) / a.rmin;
+    rows += e;
+    live += e > 0;
+  }
+  items = warp_sum(items) * a.K;
+  rows = warp_sum(rows);
+  live = warp_sum(live);
+  if (items <= a.target) return a.rmin;
+  const int64_t need = (int64_t)a.K * rows, room = a.target - (int64_t)a.K * live;
+  int lo = max(a.rmin / 32 + 1, (int)((need + 32LL * a.target - 1) / (32LL * a.target)));
+  int hi = a.rows / 32;  // fits, as does the bound below
+  if (room > 0) hi = min(hi, (int)((need + 32 * room - 1) / (32 * room)));
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (plan_items(a, mid * 32, lane) <= a.target) hi = mid;
+    else lo = mid + 1;
+  }
+  return hi * 32;
+}
+
+// the first item of slot b
+__device__ __forceinline__ int plan_first(const Args& a, int r, int b, int lane) {
+  int n = 0;
+  for (int i = lane; i < b; i += 32) n += (extent(a, i) + r - 1) / r;
+  return warp_sum(n) * a.K;
+}
+
+// item w of the plan (slot-major; a slot's KV heads in turn, each one's
+// splits consecutive); false when w is past the last item
+__device__ __forceinline__ bool plan_item(const Args& a, int r, int w, int lane, Work& wk) {
+  int base = 0;
+  for (int b0 = 0; b0 < a.B; b0 += 32) {
+    const int b = b0 + lane;
+    const int e = b < a.B ? extent(a, b) : 0;
+    const int n = (e + r - 1) / r;
+    int incl = n * a.K;  // inclusive prefix sum of the lanes' items
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const int first = base + incl - n * a.K;
+    const unsigned hit = __ballot_sync(0xffffffffu, first <= w && w < base + incl);
+    if (hit) {
+      const int src = __ffs(hit) - 1;
+      const int off = w - __shfl_sync(0xffffffffu, first, src);
+      const int ns = __shfl_sync(0xffffffffu, n, src);
+      wk.b = b0 + src;
+      wk.kh = off / ns;
+      const int split = off - wk.kh * ns;
+      wk.unit = w;
+      wk.t_begin = split * r;
+      wk.t_end = min(wk.t_begin + r, __shfl_sync(0xffffffffu, e, src));
+      return true;
+    }
+    base += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  return false;
+}
+
+// This block's work: without extents the piece the grid (splits, K, B)
+// gives it; with them item blockIdx.x of the plan, whose split length makes
+// every item fit the grid (false past the last item: nothing to do).
+template <bool EXT>
+__device__ __forceinline__ bool block_work(const Args& a, Work& wk) {
+  if constexpr (!EXT) {
+    wk.unit = blockIdx.x;
+    wk.kh = blockIdx.y;
+    wk.b = blockIdx.z;
+    wk.t_begin = wk.unit * a.rows;
+    wk.t_end = min(wk.t_begin + a.rows, a.T);
+    return true;
+  } else {
+    const int lane = threadIdx.x & 31;
+    if (!plan_item(a, plan_rows(a, lane), blockIdx.x, lane, wk)) return false;
+    // read back by the merge, after the item's barriers
+    if (threadIdx.x == 0) {
+      int* id = work_slot();
+      id[0] = wk.b;
+      id[1] = wk.kh;
+      id[2] = wk.unit;
+    }
+    return true;
+  }
+}
 
 __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
   return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
@@ -266,16 +468,16 @@ struct Split {
 };
 
 template <bool PAGED>
-__device__ __forceinline__ Split begin_split(const Args& a, int split, int b, int* pg_s) {
+__device__ __forceinline__ Split begin_split(const Args& a, const Work& wk, int* pg_s) {
   Split sp;
-  sp.t_begin = split * a.rows;
-  const int t_end = min(sp.t_begin + a.rows, a.T);
+  sp.t_begin = wk.t_begin;
+  const int t_end = wk.t_end;
   sp.n_rows = t_end - sp.t_begin;
   sp.p0 = 0;
   if (PAGED) {
     sp.p0 = sp.t_begin / a.page;
     const int np = (t_end - 1) / a.page - sp.p0 + 1;
-    const int* pt = a.pages + (int64_t)b * a.pg_sb + sp.p0;
+    const int* pt = a.pages + (int64_t)wk.b * a.pg_sb + sp.p0;
     for (int i = threadIdx.x; i < np; i += kThreads) pg_s[i] = pt[i];
     __syncthreads();
   }
@@ -308,11 +510,11 @@ __device__ __forceinline__ int row_state(const Args& a, bool in, int p, int pq) 
 // The warps' partials (acc[w][g][d], m[w][g], l[w][g], in shared memory)
 // merge into the split's result: the output with one split, else the
 // workspace row (m, l, acc) of this split.
-template <typename T, int HD, int MAXG>
+template <typename T, int HD, int MAXG, bool EXT>
 __device__ __forceinline__ void finish_split(const Args& a, const float* acc_s,
                                              const float* m_s, const float* l_s,
-                                             int split, int b, int kh, int G) {
-  const int64_t head0 = (int64_t)b * a.H + (int64_t)kh * G;
+                                             int G) {
+  const Dest to = dest<EXT>(a, G);
   for (int e = threadIdx.x; e < G * HD; e += kThreads) {
     const int g = e / HD, d = e - g * HD;
     float mm = m_s[g];
@@ -325,10 +527,10 @@ __device__ __forceinline__ void finish_split(const Args& a, const float* acc_s,
       lsum += wt * l_s[w * MAXG + g];
       asum += wt * acc_s[(w * MAXG + g) * HD + d];
     }
-    if (a.splits == 1) {
-      store(static_cast<T*>(a.out) + (head0 + g) * HD + d, asum / fmaxf(lsum, 1e-30f));
+    if (to.direct) {
+      store(static_cast<T*>(a.out) + (to.head0 + g) * HD + d, asum / fmaxf(lsum, 1e-30f));
     } else {
-      const int64_t row = (head0 + g) * a.splits + split;
+      const int64_t row = to.row0 + (int64_t)g * to.step;
       a.ws_acc[row * HD + d] = asum;
       if (d == 0) {
         a.ws_ml[row * 2] = mm;
@@ -375,14 +577,27 @@ constexpr size_t smem_bf16() {
          (LeanBf16<HD, MAXG>::value ? sizeof(unsigned short) * MAXG * (HD + 8) : 0);
 }
 
+// The blocks an SM holds by the shared memory of the bf16 kernel (228 KB, 1
+// KB reserved a block), at most 5 (4 with extents, whose plan takes
+// registers: at 5, hd 96 spilled): ptxas's register budget
+// (__launch_bounds__), so that it neither spills for an occupancy the
+// shared memory never allows nor takes registers that would lower the one
+// it allows.
+template <int HD, int MAXG, bool EXT>
+constexpr int blocks_bf16() {
+  const int n = (int)((228 * 1024) / (smem_bf16<HD, MAXG>() + 1024));
+  const int most = EXT ? 4 : 5;
+  return n < 1 ? 1 : n > most ? most : n;
+}
+
 // Grid (splits, K, B), 4 warps. A stage is 8 rows a warp; lane (n, q) with
 // n = lane / 4, q = lane % 4 holds the scores of head n (and, with MAXG =
 // 16, head n + 8) for rows 2q, 2q + 1 (the m16n8 accumulator; rows of the
 // A operand past G are zero). For the f32 PV sum lane l owns dims
 // [l * HD/32, (l+1) * HD/32) of every head; the lean PV sum is in m16n8k8's
 // C layout.
-template <int HD, int MAXG, bool PAGED>
-__global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
+template <int HD, int MAXG, bool PAGED, bool EXT>
+__device__ __forceinline__ void bf16_item(const Args& a, const Work& wk) {
   using S = SmemBf16<HD, MAXG>;
   constexpr int LD = S::LD;
   constexpr int KS = HD / 16;          // k-steps of the QK product
@@ -398,7 +613,7 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
   S& sm = *reinterpret_cast<S*>(smem_raw);
   unsigned short* q_s = reinterpret_cast<unsigned short*>(smem_raw + sizeof(S));
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int kh = wk.kh, b = wk.b;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = lane >> 2, kq = (lane & 3) * 2;
   const int G = a.H / a.K;
@@ -420,7 +635,7 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
     }
     cp_async_commit();
   }
-  const Split sp = begin_split<PAGED>(a, split, b, sm.pages);
+  const Split sp = begin_split<PAGED>(a, wk, sm.pages);
   const int n_tiles = (sp.n_rows + TILE - 1) / TILE;
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k);
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v);
@@ -631,8 +846,14 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(Args a) {
     }
   }
   __syncthreads();
-  finish_split<__nv_bfloat16, HD, MAXG>(a, &sm.merge.acc[0][0][0], &sm.merge.m[0][0],
-                                        &sm.merge.l[0][0], split, b, kh, G);
+  finish_split<__nv_bfloat16, HD, MAXG, EXT>(a, &sm.merge.acc[0][0][0], &sm.merge.m[0][0],
+                                        &sm.merge.l[0][0], G);
+}
+
+template <int HD, int MAXG, bool PAGED, bool EXT>
+__global__ void __launch_bounds__(kThreads, (blocks_bf16<HD, MAXG, EXT>())) decode_bf16_kernel(Args a) {
+  Work wk;
+  if (block_work<EXT>(a, wk)) bf16_item<HD, MAXG, PAGED, EXT>(a, wk);
 }
 
 // ---------------------------------------------------------------------------
@@ -661,8 +882,8 @@ struct SmemF32 {
 // other half, so each lane ends with the full score of one head and runs
 // its softmax; the probabilities are broadcast back by shuffles for the PV
 // sum.
-template <int HD, bool PAGED>
-__global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
+template <int HD, bool PAGED, bool EXT>
+__device__ __forceinline__ void f32_item(const Args& a, const Work& wk) {
   constexpr int VEC = 4;
   constexpr int LPR = HD / VEC;          // lanes per row: 8, 16 or 32
   constexpr int RPW = 32 / LPR;          // rows (streams) per warp
@@ -672,7 +893,7 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SmemF32<HD>& sm = *reinterpret_cast<SmemF32<HD>*>(smem_raw);
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int kh = wk.kh, b = wk.b;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int sid = warp * RPW + lane / LPR;   // this lane's stream
   const int lir = lane % LPR;                // lane in its row
@@ -680,7 +901,7 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
   const int dim0 = lir * VEC;                // first of this lane's dims
   const int G = a.H / a.K;
   const bool vec = a.vec != 0;
-  const Split sp = begin_split<PAGED>(a, split, b, sm.pages);
+  const Split sp = begin_split<PAGED>(a, wk, sm.pages);
   const int n_tiles = (sp.n_rows + TILE - 1) / TILE;
   const float* kp = static_cast<const float*>(a.k);
   const float* vp = static_cast<const float*>(a.v);
@@ -851,7 +1072,13 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
     }
   }
   __syncthreads();
-  finish_split<float, HD, kF32G>(a, &sm.acc[0][0][0], &sm.m[0][0], &sm.l[0][0], split, b, kh, G);
+  finish_split<float, HD, kF32G, EXT>(a, &sm.acc[0][0][0], &sm.m[0][0], &sm.l[0][0], G);
+}
+
+template <int HD, bool PAGED, bool EXT>
+__global__ void __launch_bounds__(kThreads) decode_f32_kernel(Args a) {
+  Work wk;
+  if (block_work<EXT>(a, wk)) f32_item<HD, PAGED, EXT>(a, wk);
 }
 
 // ---------------------------------------------------------------------------
@@ -877,17 +1104,17 @@ struct SmemAny {
 // row states; one thread per (head, row) score; one thread per head for the
 // online softmax (base 2); one thread per (head, dim) for the PV sum, the
 // sums kept in shared memory. Barriers between the passes.
-template <int HD, bool PAGED>
-__global__ void __launch_bounds__(kThreads) decode_f32_any_kernel(Args a) {
+template <int HD, bool PAGED, bool EXT>
+__device__ __forceinline__ void f32_any_item(const Args& a, const Work& wk) {
   constexpr int CH = HD / 4;  // 16-byte chunks a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SmemAny<HD>& sm = *reinterpret_cast<SmemAny<HD>*>(smem_raw);
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int kh = wk.kh, b = wk.b;
   const int tid = threadIdx.x;
   const int G = a.H / a.K;
   const bool vec = a.vec != 0;
-  const Split sp = begin_split<PAGED>(a, split, b, sm.pages);
+  const Split sp = begin_split<PAGED>(a, wk, sm.pages);
   const float* kp = static_cast<const float*>(a.k);
   const float* vp = static_cast<const float*>(a.v);
   const float* qp = static_cast<const float*>(a.q) + ((int64_t)b * a.H + (int64_t)kh * G) * HD;
@@ -957,13 +1184,13 @@ __global__ void __launch_bounds__(kThreads) decode_f32_any_kernel(Args a) {
     }
   }
   __syncthreads();
-  const int64_t head0 = (int64_t)b * a.H + (int64_t)kh * G;
+  const Dest to = dest<EXT>(a, G);
   for (int e = tid; e < G * HD; e += kThreads) {
     const int g = e / HD, d = e % HD;
-    if (a.splits == 1) {
-      static_cast<float*>(a.out)[(head0 + g) * HD + d] = sm.acc[g][d] / fmaxf(sm.l[g], 1e-30f);
+    if (to.direct) {
+      static_cast<float*>(a.out)[(to.head0 + g) * HD + d] = sm.acc[g][d] / fmaxf(sm.l[g], 1e-30f);
     } else {
-      const int64_t row = (head0 + g) * a.splits + split;
+      const int64_t row = to.row0 + (int64_t)g * to.step;
       a.ws_acc[row * HD + d] = sm.acc[g][d];
       if (d == 0) {
         a.ws_ml[row * 2] = sm.m[g];
@@ -973,27 +1200,44 @@ __global__ void __launch_bounds__(kThreads) decode_f32_any_kernel(Args a) {
   }
 }
 
+template <int HD, bool PAGED, bool EXT>
+__global__ void __launch_bounds__(kThreads) decode_f32_any_kernel(Args a) {
+  Work wk;
+  if (block_work<EXT>(a, wk)) f32_any_item<HD, PAGED, EXT>(a, wk);
+}
+
 // one block per (query head, slot), one thread per dim: merge the splits
 // online, 8 splits' loads in flight at a time
-template <typename T>
+template <typename T, bool EXT>
 __global__ void combine_kernel(Args a) {
   constexpr int C = 8;
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int64_t row = (int64_t)b * a.H + h;
-  const float* ml = a.ws_ml + row * a.splits * 2;
-  const float* acc = a.ws_acc + row * a.splits * a.hd + d;
+  // the splits of (slot b, head h): workspace rows r0, r0 + rs, ...
+  int64_t r0 = row * a.splits, rs = 1;
+  int n = a.splits;
+  if constexpr (EXT) {  // the extent plan, made before the wait
+    const int lane = d & 31, G = a.H / a.K, kh = h / G;
+    const int r = plan_rows(a, lane);
+    n = (extent(a, b) + r - 1) / r;
+    r0 = (int64_t)(plan_first(a, r, b, lane) + kh * n) * G + (h - kh * G);
+    rs = G;
+  }
+  const float* ml = a.ws_ml + r0 * 2;
+  const float* acc = a.ws_acc + r0 * a.hd + d;
   // launched as a programmatic dependent of the split kernel: wait until
   // its grid has finished and its writes are visible
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   float mm = kMasked, lsum = 0.f, asum = 0.f;
-  for (int s0 = 0; s0 < a.splits; s0 += C) {
+  for (int s0 = 0; s0 < n; s0 += C) {
     float ms[C], ls[C], as[C];
 #pragma unroll
     for (int i = 0; i < C; ++i) {  // a split past the last adds l = acc = 0
-      const bool in = s0 + i < a.splits;
-      ms[i] = in ? ml[2 * (s0 + i)] : kMasked;
-      ls[i] = in ? ml[2 * (s0 + i) + 1] : 0.f;
-      as[i] = in ? acc[(int64_t)(s0 + i) * a.hd] : 0.f;
+      const bool in = s0 + i < n;
+      const int64_t at = (int64_t)(s0 + i) * rs;
+      ms[i] = in ? ml[2 * at] : kMasked;
+      ls[i] = in ? ml[2 * at + 1] : 0.f;
+      as[i] = in ? acc[at * a.hd] : 0.f;
     }
     float cm = mm;
 #pragma unroll
@@ -1016,7 +1260,7 @@ __global__ void combine_kernel(Args a) {
 // device (no stream work, so a capture is not disturbed). On failure the
 // launch fails and reports it.
 template <void (*Kernel)(Args), size_t kSmem>
-void launch_dyn(const Args& a, dim3 grid, cudaStream_t s) {
+void opt_in() {
   static unsigned done = 0;  // a bit per device
   int dev = 0;
   cudaGetDevice(&dev);
@@ -1025,46 +1269,78 @@ void launch_dyn(const Args& a, dim3 grid, cudaStream_t s) {
                              (int)kSmem) == cudaSuccess && dev < 32)
       done |= 1u << dev;
   }
-  Kernel<<<grid, kThreads, kSmem, s>>>(a);
 }
 
-template <int HD, bool PAGED>
-void launch_split(int dtype, const Args& a, dim3 grid, cudaStream_t s) {
-  const int G = a.H / a.K;
+// what to do with the split kernel a call runs: launch it, or ask how many
+// of its blocks an SM holds at once
+struct LaunchOp {
+  const Args& a;
+  dim3 grid;
+  cudaStream_t s;
+  template <void (*Kernel)(Args), size_t kSmem>
+  int run() const {
+    opt_in<Kernel, kSmem>();
+    Kernel<<<grid, kThreads, kSmem, s>>>(a);
+    return 0;
+  }
+};
+
+struct ResidentOp {
+  template <void (*Kernel)(Args), size_t kSmem>
+  int run() const {
+    opt_in<Kernel, kSmem>();
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, Kernel, kThreads, kSmem) !=
+        cudaSuccess)
+      return -1;
+    return n;
+  }
+};
+
+template <int HD, bool PAGED, bool EXT, typename Op>
+int with_split(int dtype, int G, const Op& op) {
   if (dtype == 1) {
     if (G <= 8)
-      launch_dyn<decode_bf16_kernel<HD, 8, PAGED>, smem_bf16<HD, 8>()>(a, grid, s);
-    else
-      launch_dyn<decode_bf16_kernel<HD, 16, PAGED>, smem_bf16<HD, 16>()>(a, grid, s);
-    return;
+      return op.template run<decode_bf16_kernel<HD, 8, PAGED, EXT>, smem_bf16<HD, 8>()>();
+    return op.template run<decode_bf16_kernel<HD, 16, PAGED, EXT>, smem_bf16<HD, 16>()>();
   }
   if constexpr (HD == 32 || HD == 64 || HD == 128) {
-    if (G <= kF32G) {
-      launch_dyn<decode_f32_kernel<HD, PAGED>, sizeof(SmemF32<HD>)>(a, grid, s);
-      return;
-    }
+    if (G <= kF32G)
+      return op.template run<decode_f32_kernel<HD, PAGED, EXT>, sizeof(SmemF32<HD>)>();
   }
-  launch_dyn<decode_f32_any_kernel<HD, PAGED>, sizeof(SmemAny<HD>)>(a, grid, s);
+  return op.template run<decode_f32_any_kernel<HD, PAGED, EXT>, sizeof(SmemAny<HD>)>();
+}
+
+// extents are taken on the paged pool only
+template <int HD, typename Op>
+int with_split(int dtype, int G, bool paged, bool ext, const Op& op, int bad) {
+  if (!paged) return ext ? bad : with_split<HD, false, false>(dtype, G, op);
+  return ext ? with_split<HD, true, true>(dtype, G, op)
+             : with_split<HD, true, false>(dtype, G, op);
+}
+
+// op on the split kernel of (dtype, hd, group, paged, extents); `bad` for
+// a shape the kernels do not take
+template <typename Op>
+int with_split(int dtype, int hd, int G, bool paged, bool ext, const Op& op, int bad) {
+  switch (hd) {
+    case 32: return with_split<32>(dtype, G, paged, ext, op, bad);
+    case 64: return with_split<64>(dtype, G, paged, ext, op, bad);
+    case 96: return with_split<96>(dtype, G, paged, ext, op, bad);
+    case 128: return with_split<128>(dtype, G, paged, ext, op, bad);
+    case 192: return with_split<192>(dtype, G, paged, ext, op, bad);
+    case 256: return with_split<256>(dtype, G, paged, ext, op, bad);
+    default: return bad;
+  }
 }
 
 int launch(int dtype, const Args& a, int B, cudaStream_t s, bool paged) {
-  const dim3 grid(a.splits, a.K, B);
-  switch (a.hd * 2 + (paged ? 1 : 0)) {
-    case 64: launch_split<32, false>(dtype, a, grid, s); break;
-    case 65: launch_split<32, true>(dtype, a, grid, s); break;
-    case 128: launch_split<64, false>(dtype, a, grid, s); break;
-    case 129: launch_split<64, true>(dtype, a, grid, s); break;
-    case 192: launch_split<96, false>(dtype, a, grid, s); break;
-    case 193: launch_split<96, true>(dtype, a, grid, s); break;
-    case 256: launch_split<128, false>(dtype, a, grid, s); break;
-    case 257: launch_split<128, true>(dtype, a, grid, s); break;
-    case 384: launch_split<192, false>(dtype, a, grid, s); break;
-    case 385: launch_split<192, true>(dtype, a, grid, s); break;
-    case 512: launch_split<256, false>(dtype, a, grid, s); break;
-    case 513: launch_split<256, true>(dtype, a, grid, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (a.splits > 1) {
+  const bool extents = a.lens != nullptr;
+  const dim3 grid = extents ? dim3(a.target) : dim3(a.splits, a.K, B);
+  const int err = with_split(dtype, a.hd, a.H / a.K, paged, extents, LaunchOp{a, grid, s},
+                             (int)cudaErrorInvalidValue);
+  if (err) return err;
+  if (extents || a.splits > 1) {
     // programmatic dependent launch: the combine grid is set up while the
     // split grid runs, and waits for it in griddepcontrol.wait
     cudaLaunchConfig_t cfg = {};
@@ -1076,8 +1352,13 @@ int launch(int dtype, const Args& a, int B, cudaStream_t s, bool paged) {
     attr.val.programmaticStreamSerializationAllowed = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    const cudaError_t e = dtype == 1 ? cudaLaunchKernelEx(&cfg, combine_kernel<__nv_bfloat16>, a)
-                                     : cudaLaunchKernelEx(&cfg, combine_kernel<float>, a);
+    cudaError_t e;
+    if (extents)
+      e = dtype == 1 ? cudaLaunchKernelEx(&cfg, combine_kernel<__nv_bfloat16, true>, a)
+                     : cudaLaunchKernelEx(&cfg, combine_kernel<float, true>, a);
+    else
+      e = dtype == 1 ? cudaLaunchKernelEx(&cfg, combine_kernel<__nv_bfloat16, false>, a)
+                     : cudaLaunchKernelEx(&cfg, combine_kernel<float, false>, a);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
@@ -1086,24 +1367,33 @@ int launch(int dtype, const Args& a, int B, cudaStream_t s, bool paged) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. pages == nullptr selects the dense cache.
-// rows: context rows per split; splits = ceil(T / rows). ws: with splits > 1,
-// B * H * splits * (hd + 2) floats of workspace (unused with one split).
-// vec: 1 if q, k, v rows all start 16-byte aligned. Launches the split
-// kernel and, with splits > 1, the combine kernel on `stream`, and returns
-// cudaGetLastError() after them (0 = success).
-extern "C" int decode_attention_launch(
+// rows: context rows per split (with lens: the most a split may take);
+// splits = ceil(T / rows). ws: with splits > 1, B * H * splits * (hd + 2)
+// floats of workspace (unused with one split). vec: 1 if q, k, v rows all
+// start 16-byte aligned. lens: nullptr, or (B,) int32 extents on the device
+// (the note at the top): then the split grid is `blocks` blocks, one item
+// each (at least B * K * ceil(T / rows)), splits take rmin..rows rows, and
+// ws holds blocks * (H / K) * (hd + 2) floats. Launches the split kernel
+// and, with splits > 1 or lens, the combine kernel on `stream`, and
+// returns cudaGetLastError() after them (0 = success).
+extern "C" int decode_attention_extent_launch(
     int dtype, const void* q, const void* k, const void* v, const int* pos_q,
     const int* pos_c, const int* pages, void* out, float* ws, int B, int H,
     int K, int hd, int T, int page, int window, int rows, int vec,
     int64_t k_sb, int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,
-    int64_t v_sh, int64_t pc_sb, int64_t pg_sb, float scale, void* stream) {
+    int64_t v_sh, int64_t pc_sb, int64_t pg_sb, float scale, void* stream,
+    const int* lens, int rmin, int blocks) {
   if (B <= 0 || T <= 0 || rows <= 0 || K <= 0 || H % K || H / K > kMaxGroup)
+    return (int)cudaErrorInvalidValue;
+  if (lens && (rmin <= 0 || rmin > rows || ws == nullptr ||
+               blocks < (int64_t)B * K * ((T + rows - 1) / rows)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.pos_q = pos_q; a.pos_c = pos_c;
-  a.pages = pages; a.out = out;
+  a.pages = pages; a.out = out; a.lens = lens;
   a.H = H; a.K = K; a.hd = hd; a.T = T; a.page = page; a.window = window;
-  a.rows = rows; a.splits = (T + rows - 1) / rows; a.vec = vec;
+  a.rows = rows; a.splits = lens ? 0 : (T + rows - 1) / rows; a.vec = vec;
+  a.B = B; a.rmin = rmin; a.target = blocks;
   a.page_shift = -1;
   if (pages) {
     if (page <= 0 || (rows + page - 1) / page + 1 > kMaxSplitPages)
@@ -1114,8 +1404,9 @@ extern "C" int decode_attention_launch(
     }
   }
   if (a.splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const int64_t ws_rows = lens ? (int64_t)blocks * (H / K) : (int64_t)B * H * a.splits;
   a.ws_acc = ws;
-  a.ws_ml = ws ? ws + (int64_t)B * H * a.splits * hd : nullptr;
+  a.ws_ml = ws ? ws + ws_rows * hd : nullptr;
   a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
   a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
   a.pc_sb = pc_sb; a.pg_sb = pg_sb; a.scale2 = scale * kLog2e;
@@ -1123,4 +1414,24 @@ extern "C" int decode_attention_launch(
   const int err = launch(dtype, a, B, static_cast<cudaStream_t>(stream), pages != nullptr);
   if (err) return err;
   return (int)cudaGetLastError();
+}
+
+// The same launch without extents: every slot attends its T rows.
+extern "C" int decode_attention_launch(
+    int dtype, const void* q, const void* k, const void* v, const int* pos_q,
+    const int* pos_c, const int* pages, void* out, float* ws, int B, int H,
+    int K, int hd, int T, int page, int window, int rows, int vec,
+    int64_t k_sb, int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,
+    int64_t v_sh, int64_t pc_sb, int64_t pg_sb, float scale, void* stream) {
+  return decode_attention_extent_launch(dtype, q, k, v, pos_q, pos_c, pages, out, ws, B, H,
+                                        K, hd, T, page, window, rows, vec, k_sb, k_st, k_sh,
+                                        v_sb, v_st, v_sh, pc_sb, pg_sb, scale, stream,
+                                        nullptr, 0, 0);
+}
+
+// Blocks of the paged split kernel with extents of (dtype, hd, group) one
+// SM holds at once, or a negative number for a shape the kernels do not take.
+extern "C" int decode_attention_blocks_per_sm(int dtype, int hd, int group) {
+  if (group < 1 || group > kMaxGroup || (dtype != 0 && dtype != 1)) return -1;
+  return with_split(dtype, hd, group, true, true, ResidentOp{}, -1);
 }

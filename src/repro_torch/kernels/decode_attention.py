@@ -9,12 +9,24 @@ Replaces ``repro/kernels/decode_attention.py``: ``decode_attention_pallas``
 included: a row whose attended entries are all masked returns the mean of
 its value rows (the fill is the finite -1e30).
 
+The paged versions also take ``lens``, a (B,) int32 extent a slot: rows
+``t >= min(lens[b], T)`` of slot b are excluded exactly as rows past T are
+(weight 0, not in the max, never read by the kernel), so the result equals
+slicing the slot's context to its extent; a slot with ``lens[b] == 0``
+reads nothing and returns zeros. Without ``lens`` every slot attends its T
+rows (and an all-masked one returns the mean of them). The engine's fused
+decode step passes the rows each live slot attends and 0 for dead slots,
+so the kernel reads only live rows.
+
 Decode attention is bound by the bytes of the KV context it reads. The
 kernel splits the context across blocks (flash-decoding): each block reads
 its rows once, with 16-byte loads, for all query heads of a KV group, and
 a combine kernel merges the splits' partial softmax sums (see the note in
 the CUDA source). ``decode_attention_split_plain`` is that split-and-merge
-arithmetic in plain PyTorch, for the tests.
+arithmetic in plain PyTorch, for the tests. With extents the kernel's grid
+is fixed when the launch is issued (a CUDA graph replays it while the
+extents change) and walks a work list of the live rows' splits, whose
+length it chooses on the device (:func:`plan_split_rows` is that rule).
 """
 from __future__ import annotations
 
@@ -32,6 +44,8 @@ HEAD_DIMS = (32, 64, 96, 128, 192, 256)
 MAX_GROUP = 16  # query heads per KV head the kernel holds
 MIN_SPLIT_ROWS, MAX_SPLIT_ROWS = 32, 1024  # context rows per split
 MAX_SPLIT_PAGES = 256  # page-table entries a split stages (kMaxSplitPages)
+#: with extents: the least rows a split takes (32 and 128 were slower)
+PLAN_MIN_ROWS = 64
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -44,6 +58,13 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
     Scores and the probability-weighted sum accumulate in f32 over the
     cache's own values (the products of bf16 values are exact in f32)."""
+    return _decode_rows(q, k_cache, v_cache, pos_q, pos_cache, window, None)
+
+
+def _decode_rows(q, k_cache, v_cache, pos_q, pos_cache, window, inside):
+    """:func:`decode_attention_plain`; with ``inside`` ((B, T) bool, the
+    slots' extents) the rows outside are excluded: -inf scores (weight 0,
+    not in the max), and zeros for a slot with no row inside."""
     b, _, h, d = q.shape
     num_kv = k_cache.shape[2]
     qg = q[:, 0].reshape(b, num_kv, h // num_kv, d)
@@ -55,7 +76,11 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     if window is not None:
         ok = ok & (dd < window)
     s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    if inside is not None:
+        s = torch.where(inside[:, None, None, :], s, -torch.inf)
     m = s.amax(dim=-1, keepdim=True)
+    if inside is not None:  # no row inside: m finite, every p 0
+        m = m.clamp(min=NEG_INF)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     w = (p / torch.clamp(l, min=1e-30)).to(v_cache.dtype).float()
@@ -63,23 +88,33 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(b, 1, h, d).to(q.dtype)
 
 
+def _extent_rows(pos_cache: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """(B, T) True where row t lies inside slot b's extent."""
+    t = torch.arange(pos_cache.shape[1], device=pos_cache.device)
+    return t[None] < lens.to(pos_cache.device).long()[:, None]
+
+
 def decode_attention_paged_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                  v_pool: torch.Tensor, pages: torch.Tensor,
                                  pos_q: torch.Tensor, pos_cache: torch.Tensor,
-                                 *, window: Optional[int] = None
+                                 *, window: Optional[int] = None,
+                                 lens: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """Decode through a page table. k/v_pool: (P, page, K, hd) physical
     pages (page 0 is the engine's null page); pages: (B, NP) int page table
     covering the attended context; pos_cache: (B, T <= NP*page) absolute
-    position per logical row. Gathers each row's context and defers to the
-    dense version sliced to T, so paged and dense decode see the same
-    operands."""
+    position per logical row; ``lens``: optional (B,) extents (module
+    docstring). Gathers each row's context and defers to the dense version
+    sliced to T, so paged and dense decode see the same operands."""
     b, np_ = pages.shape
     page = k_pool.shape[1]
     t = pos_cache.shape[1]
     idx = pages.long()
     k_ctx = k_pool[idx].reshape(b, np_ * page, *k_pool.shape[2:])[:, :t]
     v_ctx = v_pool[idx].reshape(b, np_ * page, *v_pool.shape[2:])[:, :t]
+    if lens is not None:
+        return _decode_rows(q, k_ctx, v_ctx, pos_q, pos_cache, window,
+                            _extent_rows(pos_cache, lens))
     return decode_attention_plain(q, k_ctx, v_ctx, pos_q, pos_cache,
                                   window=window)
 
@@ -88,7 +123,8 @@ def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                  v_cache: torch.Tensor, pos_q: torch.Tensor,
                                  pos_cache: torch.Tensor, *, split_rows: int,
                                  window: Optional[int] = None,
-                                 p_dtype: torch.dtype = torch.float32
+                                 p_dtype: torch.dtype = torch.float32,
+                                 lens: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """The CUDA kernel's split-context algorithm in plain PyTorch (the
     tests use it; the main path does not). Same arguments and result as
@@ -104,9 +140,16 @@ def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
     bf16 as the lean instances feed P to the tensor cores (see
     :func:`lean_instance`). On a slot whose entries are all masked every
     split has m = -1e30 and weight 1, so the result is the mean of the T
-    value rows, as in the unsplit version."""
+    value rows, as in the unsplit version.
+
+    With ``lens`` (B,), rows of slot b past its extent min(lens[b], T) are
+    excluded (weight 0, not in the max), so a split wholly past it has
+    l = acc = 0 and adds nothing to the merge, and a slot of extent 0
+    returns zeros: the kernel's extent plan, whose splits also start at
+    multiples of their length."""
     if split_rows < 1:
         raise ValueError(f"split_rows must be positive, got {split_rows}")
+    inside = None if lens is None else _extent_rows(pos_cache, lens)
     b, _, h, d = q.shape
     num_kv = k_cache.shape[2]
     t = pos_cache.shape[1]
@@ -121,7 +164,11 @@ def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
         s = torch.einsum("bkgd,btkd->bkgt", qg,
                          k_cache[:, t0:t1].float()) * d ** -0.5
         s = torch.where(ok[:, None, None, t0:t1], s, NEG_INF)
+        if inside is not None:
+            s = torch.where(inside[:, None, None, t0:t1], s, -torch.inf)
         m = s.amax(dim=-1)
+        if inside is not None:  # a split past the extent: m finite, p 0
+            m = m.clamp(min=NEG_INF)
         p = torch.exp(s - m[..., None])
         ms.append(m)
         ls.append(p.sum(dim=-1))
@@ -168,6 +215,32 @@ def split_rows_for(b: int, num_kv: int, t: int, sms: int,
     return rows
 
 
+def plan_split_rows(extents, num_kv: int, blocks: int, rmin: int,
+                    rmax: int) -> int:
+    """The kernel's split length with extents (``plan_rows`` in the CUDA
+    source, which finds it by doubling and halving): ``rmin`` if its
+    (slot, KV head, split) items of the extents (each clamped to T by the
+    caller) fit the ``blocks`` of the grid, else the least multiple of 32
+    rows above it that fits, else ``rmax``."""
+    def fits(r):
+        return num_kv * sum(-(-int(e) // r) for e in extents) <= blocks
+
+    if fits(rmin):
+        return rmin
+    return next((r for r in range(32 * (rmin // 32 + 1), rmax, 32)
+                 if fits(r)), rmax)
+
+
+def plan_blocks(b: int, num_kv: int, t: int, resident: int, rmin: int,
+                rmax: int) -> int:
+    """The extent launch's grid, one item a block: the ``resident`` blocks
+    the card holds at once, but at least the items of splits of ``rmax``
+    rows over every slot's T (so the plan always fits) and at most those of
+    ``rmin`` rows (the most it can make)."""
+    return min(max(resident, b * num_kv * -(-t // rmax)),
+               b * num_kv * -(-t // rmin))
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
@@ -181,11 +254,29 @@ def _lib() -> ctypes.CDLL:
     lib = runtime.load("decode_attention")
     if not _argtypes_set:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.decode_attention_launch.argtypes = (
-            [i] + [p] * 8 + [i] * 9 + [i64] * 8 + [ctypes.c_float, p])
+        args = [i] + [p] * 8 + [i] * 9 + [i64] * 8 + [ctypes.c_float, p]
+        lib.decode_attention_launch.argtypes = args
         lib.decode_attention_launch.restype = ctypes.c_int
+        lib.decode_attention_extent_launch.argtypes = args + [p] + [i] * 2
+        lib.decode_attention_extent_launch.restype = ctypes.c_int
+        lib.decode_attention_blocks_per_sm.argtypes = [i] * 3
+        lib.decode_attention_blocks_per_sm.restype = ctypes.c_int
         _argtypes_set = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(device_index: int, dtype: torch.dtype, hd: int,
+                    group: int) -> int:
+    """Blocks of the paged split kernel with extents of (dtype, hd, group)
+    the card holds at once: the least grid :func:`plan_blocks` gives."""
+    with torch.cuda.device(device_index):
+        per_sm = _lib().decode_attention_blocks_per_sm(_DTYPES[dtype], hd,
+                                                       group)
+    if per_sm <= 0:
+        raise RuntimeError(f"decode attention: no occupancy for {dtype} hd "
+                           f"{hd} group {group} ({per_sm})")
+    return per_sm * _sm_count(device_index)
 
 
 @functools.lru_cache(maxsize=None)
@@ -246,10 +337,13 @@ def _check_common(q, k, v, pos_q, pos_cache):
 
 
 def _launch(q, k, v, pos_q, pos_cache, pages, window, split_rows, b, h, kh,
-            hd, page):
+            hd, page, lens=None):
     t = pos_cache.shape[1]
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    if lens is not None:
+        return _launch_extents(q, k, v, pos_q, pos_cache, pages, window,
+                               split_rows, b, h, kh, hd, page, lens)
     if split_rows is None:
         split_rows = split_rows_for(b, kh, t, _sm_count(q.device.index),
                                     page if pages is not None else None)
@@ -279,6 +373,47 @@ def _launch(q, k, v, pos_q, pos_cache, pages, window, split_rows, b, h, kh,
     return out
 
 
+def _launch_extents(q, k, v, pos_q, pos_cache, pages, window, split_rows, b,
+                    h, kh, hd, page, lens):
+    """The extent launch (paged): a grid of :func:`plan_blocks` blocks;
+    splits of PLAN_MIN_ROWS up to the paged cap, or exactly
+    ``split_rows``."""
+    _check_int("lens", lens, 1)
+    if lens.shape[0] != b or lens.device != q.device:
+        raise ValueError(f"lens must be ({b},) on {q.device}, got "
+                         f"{tuple(lens.shape)} on {lens.device}")
+    t = pos_cache.shape[1]
+    rmin, rmax = PLAN_MIN_ROWS, MAX_SPLIT_ROWS
+    while -(-rmax // page) + 1 > MAX_SPLIT_PAGES:
+        rmax //= 2
+    if split_rows is not None:
+        if split_rows < 1:
+            raise ValueError(f"split_rows must be positive, got {split_rows}")
+        rmin = rmax = int(split_rows)
+        if -(-rmax // page) + 1 > MAX_SPLIT_PAGES:
+            raise ValueError(f"a split of {rmax} rows spans more than "
+                             f"{MAX_SPLIT_PAGES} pages of {page}")
+    rmin = min(rmin, rmax)
+    blocks = plan_blocks(b, kh, t, resident_blocks(
+        q.device.index, q.dtype, hd, h // kh), rmin, rmax)
+    out = torch.empty_like(q)
+    ws = torch.empty(blocks * (h // kh) * (hd + 2), dtype=torch.float32,
+                     device=q.device)
+    vec = all(_rows_aligned(x) for x in (q, k, v))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().decode_attention_extent_launch(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        pos_q.data_ptr(), pos_cache.data_ptr(), pages.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), b, h, kh, hd, t, page,
+        0 if window is None else int(window), rmax, int(vec),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        pos_cache.stride(0), pages.stride(0), float(hd ** -0.5), stream,
+        lens.data_ptr(), rmin, blocks)
+    runtime.check(err, "decode_attention")
+    return out
+
+
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, pos_q: torch.Tensor,
                           pos_cache: torch.Tensor, *,
@@ -300,10 +435,13 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                 v_pool: torch.Tensor, pages: torch.Tensor,
                                 pos_q: torch.Tensor, pos_cache: torch.Tensor,
                                 *, window: Optional[int] = None,
-                                split_rows: Optional[int] = None
+                                split_rows: Optional[int] = None,
+                                lens: Optional[torch.Tensor] = None
                                 ) -> torch.Tensor:
     """Kernel launch for the paged pool; rows are found through ``pages``.
-    ``split_rows`` as for :func:`decode_attention_cuda`."""
+    ``split_rows`` as for :func:`decode_attention_cuda`; with ``lens``
+    (module docstring) it fixes every split's rows, else the device picks
+    them (:func:`plan_split_rows`)."""
     b, h, kh, hd = _check_common(q, k_pool, v_pool, pos_q, pos_cache)
     if pages.device != q.device:
         raise ValueError(f"pages must lie on {q.device}, got {pages.device}")
@@ -313,4 +451,4 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"page table {tuple(pages.shape)} x page {page} does "
                          f"not cover pos_cache {tuple(pos_cache.shape)}")
     return _launch(q, k_pool, v_pool, pos_q, pos_cache, pages, window,
-                   split_rows, b, h, kh, hd, page)
+                   split_rows, b, h, kh, hd, page, lens)

@@ -138,17 +138,21 @@ decode_attention.by_shape = {}
 
 
 def decode_attention_paged(q, k_pool, v_pool, pages, pos_q, pos_cache, *,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           lens: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Decode through a page table: k/v_pool (P, page, K, hd) physical
-    pages, pages (B, NP) int32 page-table rows, pos_cache (B, T)."""
+    pages, pages (B, NP) int32 page-table rows, pos_cache (B, T); ``lens``
+    (B,) int32, optional: the rows each slot attends (0: none, zeros out;
+    ``kernels.decode_attention``'s docstring)."""
     if _route(q, "decode_attention_paged"):
         out = decode_attention_paged_cuda(q, k_pool, v_pool, pages, pos_q,
-                                          pos_cache, window=window)
+                                          pos_cache, window=window, lens=lens)
         decode_attention_paged.launches += 1
         _count_shape(decode_attention_paged, q, k_pool)
         return out
     return decode_attention_paged_plain(q, k_pool, v_pool, pages, pos_q,
-                                        pos_cache, window=window)
+                                        pos_cache, window=window, lens=lens)
 
 
 decode_attention_paged.launches = 0

@@ -189,17 +189,21 @@ def _kernel_or_raise(q: torch.Tensor, impl: str,
 
 
 def decode_attention_paged(q, k_pool, v_pool, pages, pos_q, pos_cache, *,
-                           window: Optional[int] = None, impl: str = "auto"):
-    """Paged decode dispatcher. impl: auto | torch | cuda."""
+                           window: Optional[int] = None, impl: str = "auto",
+                           lens: Optional[torch.Tensor] = None):
+    """Paged decode dispatcher. impl: auto | torch | cuda. ``lens``: the
+    optional (B,) extents (``kernels.ops.decode_attention_paged``)."""
     if impl in ("auto", "cuda"):
         from repro_torch.kernels import ops as kops
 
         _kernel_or_raise(q, impl)
         return kops.decode_attention_paged(q, k_pool, v_pool, pages, pos_q,
-                                           pos_cache, window=window)
+                                           pos_cache, window=window,
+                                           lens=lens)
     if impl == "torch":
         return decode_attention_paged_torch(q, k_pool, v_pool, pages, pos_q,
-                                            pos_cache, window=window)
+                                            pos_cache, window=window,
+                                            lens=lens)
     raise ValueError(impl)
 
 

@@ -7,7 +7,10 @@ object serves several engines and a JAX parameter tree converts by copy
 (``repro_torch.convert``). The cache tree keeps the JAX leaf names and row
 shapes: ``blocks/{k,v}`` ``(L, B, T, K, hd)``, ``pos`` ``(B, T)``,
 ``index`` ``(B,)``, plus ``pages`` ``(B, n_pt)`` when the engine pages the
-KV leaves into ``(L, P, page, K, hd)`` pools. The ``moe`` family's layers
+KV leaves into ``(L, P, page, K, hd)`` pools. A decode step's cache dict may
+also carry ``lens`` ``(B,)`` int32, the rows each slot attends (0 for a dead
+slot): the paged decode reads only those (the engine's fused step passes
+it; nothing stores it). The ``moe`` family's layers
 fall in two groups, ``dense_blocks`` (its first ``first_k_dense`` layers,
 a dense MLP) and ``blocks`` (an MoE layer each), with a KV leaf pair each
 over the shared ``pos``/``index``. The ``ssm`` cache is
@@ -567,7 +570,8 @@ class DecoderLM(nn.Module):
     def _attn_block(self, lp, x, cos, sin, pos_q, pos_kv, mode, window,
                     lcache, idx, layer: Optional[int] = None,
                     ctx: Optional[int] = None,
-                    pages: Optional[torch.Tensor] = None, moe: bool = False):
+                    pages: Optional[torch.Tensor] = None, moe: bool = False,
+                    lens: Optional[torch.Tensor] = None):
         """One attention block and its MLP (an MoE layer under ``moe``).
         Returns (x, the prefill's (k, v) or None, the router's aux loss or
         None)."""
@@ -591,7 +595,8 @@ class DecoderLM(nn.Module):
             # (L, P, page, K, hd); the slot's page table maps logical page
             # -> physical page (0 = null page). Write one row THROUGH the
             # table, then attend page by page; unwritten entries are masked
-            # via pos (null-page garbage contributes nothing to live rows)
+            # via pos (null-page garbage contributes nothing to live rows);
+            # with ``lens`` a slot reads only its leading lens[b] rows
             kc, vc = lcache["k"], lcache["v"]
             page = kc.shape[-3]
             bi = torch.arange(b, device=x.device)
@@ -607,7 +612,8 @@ class DecoderLM(nn.Module):
                                           "not on a mesh")
             out = attn_mod.decode_attention_paged(
                 q, kc[layer], vc[layer], pages[:, :npg], pos_q[:, 0],
-                pos_kv[:, :ctx_eff], window=window, impl=self.decode_impl)
+                pos_kv[:, :ctx_eff], window=window, impl=self.decode_impl,
+                lens=lens)
         elif mode == "decode":
             kc, vc = lcache["k"], lcache["v"]
             _write_rows(kc, layer, idx, k[:, 0])
@@ -747,6 +753,8 @@ class DecoderLM(nn.Module):
             return x, aux_total, caches
         pos_kv = cache["pos"] if cache is not None else None
         pages = cache.get("pages") if cache is not None else None
+        lens = (cache.get("lens") if cache is not None and mode == "decode"
+                else None)
         layer_caches = {}
         block = self._remat_layer(self._attn_block, mode)
         for key, n_layers, moe in self._kv_groups():
@@ -756,7 +764,7 @@ class DecoderLM(nn.Module):
                 lp = _layer(params[key], l)
                 x, kv, aux = block(
                     lp, x, cos, sin, positions, pos_kv, mode, None, lcache,
-                    idx, layer=l, ctx=ctx, pages=pages, moe=moe)
+                    idx, layer=l, ctx=ctx, pages=pages, moe=moe, lens=lens)
                 if aux is not None:
                     aux_total = aux_total + aux
                 if kv is not None and kv_sink is not None:

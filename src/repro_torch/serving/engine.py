@@ -449,7 +449,9 @@ class _BlockState:
     these addresses. The inputs arrive from host staging (pinned on the
     card) in one copy each: ``vec`` holds the rows token, position and
     budget (int32), ``key_vec`` (at temperature > 0) the columns of a
-    slot's key pair and its request id (int64)."""
+    slot's key pair and its request id (int64). ``lens`` is each step's
+    attended extent a slot (0 for a dead one), which a paged pool's decode
+    reads."""
 
     def __init__(self, b: int, device: torch.device, keyed: bool):
         pin = device.type == "cuda"
@@ -459,6 +461,7 @@ class _BlockState:
         self.tok, self.pos, self.budget = self.vec.unbind(0)
         self.alive = torch.empty((b,), dtype=torch.bool, device=device)
         self.produced = torch.empty((b,), dtype=torch.int32, device=device)
+        self.lens = torch.zeros((b,), dtype=torch.int32, device=device)
         self.bi = torch.arange(b, device=device)
         if keyed:
             self.key_host = torch.empty((b, 3), dtype=torch.int64,
@@ -677,6 +680,10 @@ class TierEngine:
         self.decode_graph_steps = 0  # fused steps replayed from a graph
         self.decode_eager_steps = 0  # fused steps issued op by op
         self.decode_graph_captures = 0
+        # the fused blocks' attended rows: the live slots' (position + 1 a
+        # step) and the grid's (B x the context bucket a step)
+        self.decode_rows_live = 0
+        self.decode_rows_grid = 0
 
     # ------------------------------------------------------------------
     # hot-path blocks
@@ -715,10 +722,29 @@ class TierEngine:
         sync = tracing.begin("engine.decode.sync", tier=self.tier)
         block = block.cpu().numpy()
         tracing.end(sync)
+        rows_live = self._rows_live(positions, budgets, k_steps, block)
+        rows_grid = len(positions) * teff * k_steps
+        self.decode_rows_live += rows_live
+        self.decode_rows_grid += rows_grid
         if sp:
             tracing.end(sp, k=k_steps, teff=teff, slots=slots,
-                        graph=graphed == k_steps, **pool)
+                        graph=graphed == k_steps, rows_live=rows_live,
+                        rows_grid=rows_grid, **pool)
         return block
+
+    def _rows_live(self, positions: np.ndarray, budgets: np.ndarray,
+                   k_steps: int, block: np.ndarray) -> int:
+        """The rows a fused block's live slots attend: position + 1 at each
+        step a slot lives (its budget, the capacity, an EOS token in the
+        block end it, as the step's stop rules do)."""
+        p = np.asarray(positions, np.int64)
+        live = np.asarray(budgets, np.int64)
+        n = np.minimum(np.minimum(live, k_steps),
+                       int(self.serving.max_seq) - 1 - p)
+        eos = block == self.eos_id
+        first_eos = np.where(eos.any(axis=1), eos.argmax(axis=1) + 1, k_steps)
+        n = np.where(live > 0, np.maximum(np.minimum(n, first_eos), 1), 0)
+        return int((n * (p + 1) + n * (n - 1) // 2).sum())
 
     def _fused_recurrent(self, tokens, positions, budgets, ctx, k_steps,
                          rids) -> torch.Tensor:
@@ -837,8 +863,17 @@ class TierEngine:
         old_pos = cache["pos"][g.bi, idx0.long()]
         # decode_step rebinds "index" in the dict it is given: a shallow
         # copy keeps self.cache on the engine's own tensor
+        step_cache = dict(cache)
+        if "pages" in cache:
+            # a paged pool's decode reads only the rows each slot attends: a
+            # live slot its rows up to this token's (linear placement), a
+            # dead one none
+            torch.mul(idx0 + 1, g.alive, out=g.lens)
+            if ctx is not None:
+                g.lens.clamp_(max=ctx)
+            step_cache["lens"] = g.lens
         logits, stepped = self.model.decode_step(
-            self.params, dict(cache),
+            self.params, step_cache,
             {"tokens": g.tok[:, None], "positions": g.pos}, ctx=ctx)
         if self.temp > 0:
             sampled = keyed_sample(logits, g.keys, g.rids, g.pos, self.temp)

@@ -64,7 +64,12 @@ stretch of the device by the innermost span open at its middle):
   ``decode_graph_steps`` / ``decode_eager_steps`` count the steps); on a
   paged engine ``pages_used`` (the pool's pages in use as the block
   starts) and ``pool_pages`` (its pages, the null page left out), whose
-  ratio on the remote tier ``engine.kv_pool_used_pct`` reads.
+  ratio on the remote tier ``engine.kv_pool_used_pct`` reads;
+  ``rows_live``, the context rows the block's live slots attend
+  (position + 1 at each step a slot lives), and ``rows_grid``, the rows
+  of its grid (B x ``teff`` a step): their ratio is the share of the grid
+  a paged decode with extents reads. The engine sums both over its
+  blocks (``decode_rows_live``, ``decode_rows_grid``), traced or not.
   ``engine.decode_device_busy_pct``, ``engine.decode_issue_ms`` (its
   ``k``); idle. Its children: ``engine.decode.issue`` (entry to the last
   launch of the k steps: the inputs' copies to the device and the k

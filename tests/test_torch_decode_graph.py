@@ -1,4 +1,5 @@
-"""The fused decode block as CUDA graphs (``TierEngine._fused_static``).
+"""The fused decode block as CUDA graphs (``TierEngine._fused_static``),
+and the extents its step hands a paged pool's decode attention.
 
 On the card, each step of the block of a family whose cache writes by
 absolute position is one CUDA graph per context bucket, captured at the
@@ -14,6 +15,16 @@ between blocks, ``inject_slot`` and ``restore`` before a replay. On the
 CPU the same scenario runs with a stand-in for the graph that replays the
 captured step against the tensors its capture saw, as a graph reads the
 addresses it captured, so a graph kept over replaced storage shows here.
+
+A paged engine's step hands the decode attention each slot's extent
+(index + 1 for a live slot, 0 for a dead one), so the paged graphed and
+eager cases run with extents. The extent cases: the tokens, positions and
+tables of a paged engine with extents equal those with them off (CPU f32,
+and on the card), at reduced qwen2-vl and a Phi-3-Vision-shaped hd-96 MHA
+model; the engine's row counters against a hand count; and, on the card,
+the paged kernel with extents against its plain version at the cells'
+(hd, group) pairs and a lean instance, replayed from a graph with other
+extents.
 """
 import contextlib
 
@@ -25,6 +36,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.config import ServingConfig  # noqa: E402
 from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    MAX_SPLIT_ROWS, PLAN_MIN_ROWS, decode_attention_paged_cuda,
+    decode_attention_paged_plain, decode_attention_split_plain,
+    lean_instance, plan_blocks, plan_split_rows, resident_blocks)
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import (TierEngine, _named_leaves,  # noqa: E402
                                         _tree_map)
@@ -79,8 +95,15 @@ def _stand_in_graphs(monkeypatch, eng):
     monkeypatch.setattr(eng, "_side_stream", contextlib.nullcontext)
 
 
-def _model(device, dtype):
-    cfg = reduced_config("qwen2-vl-2b").replace(dtype=dtype)
+#: the reduced models: the Qwen edge's, and a Phi-3-Vision-shaped MHA one at
+#: the cell's head dim (4 heads of 96 over 4 KV heads)
+ARCHS = {"qwen2-vl-2b": ("qwen2-vl-2b", {}),
+         "phi-3-vision hd96": ("phi-3-vision-4.2b", {"head_dim": 96})}
+
+
+def _model(device, dtype, arch="qwen2-vl-2b"):
+    name, widths = ARCHS[arch]
+    cfg = reduced_config(name).replace(dtype=dtype, **widths)
     attn = "cuda" if device.type == "cuda" else "auto"
     model = build_model(cfg, attn_impl=attn, device=device)
     return model, model.init(0)
@@ -134,6 +157,27 @@ def _drive(eng):
     while eng.waiting or any(s is not None for s in eng.slots):
         steps(1)
     return states
+
+
+def _tokens_and_tables(states):
+    """Each step's tokens, ``pos``, ``index`` and page tables: what a paged
+    block with extents must leave as one without them does (the K/V rows a
+    dead slot writes, never read, may differ)."""
+    keep = ("['pos']", "['index']", "['pages']")
+    return [(toks, {name: t for name, t in _named_leaves(cache)
+                    if name in keep}) for toks, cache in states]
+
+
+def _without_extents(monkeypatch):
+    """Drop the extents the engine's step hands the model's paged decode
+    dispatcher, so the kernel attends every row of the bucket (the control
+    the extent cases compare against)."""
+    real = attn_mod.decode_attention_paged
+
+    def every_row(*args, lens=None, **kw):
+        return real(*args, **kw)
+
+    monkeypatch.setattr(attn_mod, "decode_attention_paged", every_row)
 
 
 def _assert_same(got, want):
@@ -279,3 +323,179 @@ def test_a_dropped_graphed_engine_frees_its_memory(cuda):
         assert torch.cuda.memory_allocated() == held
     finally:
         gc.enable()
+
+
+@pytest.mark.parametrize("temp", [0.0, 0.7])
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_extents_keep_the_tokens(monkeypatch, arch, temp):
+    """A paged engine whose fused step hands attention each slot's extent
+    (index + 1 live, 0 dead) against the same engine with extents off, on
+    the CPU in f32 through the scenario (a slot dying in its first block,
+    a bucket change, an admission, extract and inject, a restore): the same
+    tokens, ``pos``, ``index`` and page tables after every step."""
+    model, params = _model(torch.device("cpu"), "float32", arch)
+    off = TierEngine(model, params, _serving(True), eos_id=-1,
+                     sample_temp=temp, seed=3)
+    with monkeypatch.context() as m:
+        _without_extents(m)
+        want = _tokens_and_tables(_drive(off))
+    eng = TierEngine(model, params, _serving(True), eos_id=-1,
+                     sample_temp=temp, seed=3)
+    calls = []
+    real = ops.decode_attention_paged
+
+    def seen(*args, lens=None, **kw):
+        calls.append(lens is not None and bool((lens == 0).any()))
+        return real(*args, lens=lens, **kw)
+
+    monkeypatch.setattr(ops, "decode_attention_paged", seen)
+    got = _tokens_and_tables(_drive(eng))
+    assert any(calls)  # extents were passed, a dead slot's 0 among them
+    assert len(got) == len(want)
+    for (toks, tables), (toks0, tables0) in zip(got, want):
+        assert toks == toks0
+        for name, t in tables.items():
+            assert torch.equal(t, tables0[name]), name
+
+
+def test_decode_rows_counters_count_one_block():
+    """``decode_rows_live`` / ``decode_rows_grid`` and the block span's
+    ``rows_live`` / ``rows_grid``, hand-counted for one block of 4 steps:
+    a slot at position 10 with 2 tokens of budget attends 11 + 12 rows, one
+    at 20 with 9 attends 21 + 22 + 23 + 24; the grid is 4 slots x the
+    32-row bucket x 4 steps."""
+    from repro_torch import tracing
+
+    model, params = _model(torch.device("cpu"), "float32")
+    eng = TierEngine(model, params, ServingConfig(
+        max_batch=4, max_seq=128, fused_steps=4, paged=True,
+        kv_page_size=16), eos_id=-1)
+    eng.submit(0, np.arange(4, 14, dtype=np.int32), max_new=3)
+    eng.submit(1, np.arange(4, 24, dtype=np.int32), max_new=10)
+    tracing.clear()
+    tracing.enable()
+    try:
+        eng.step()
+    finally:
+        tracing.disable()
+    live, grid = (11 + 12) + (21 + 22 + 23 + 24), 4 * 32 * 4
+    assert (eng.decode_rows_live, eng.decode_rows_grid) == (live, grid)
+    block = [sp for sp in tracing.records() if sp.name == "engine.decode_block"]
+    assert len(block) == 1
+    assert (block[0].attrs["rows_live"], block[0].attrs["rows_grid"]) == (
+        live, grid)
+    tracing.clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temp", [0.0, 0.7])
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_extents_keep_the_tokens_on_the_card(monkeypatch, cuda, arch,
+                                            temp):
+    """On the card in f32 (the kernel with extents against the kernel
+    without, graphed both): the same tokens, ``pos``, ``index`` and page
+    tables after every step of the scenario."""
+    model, params = _model(cuda, "float32", arch)
+    off = TierEngine(model, params, _serving(True), eos_id=-1,
+                     sample_temp=temp, seed=3)
+    with monkeypatch.context() as m:
+        _without_extents(m)
+        want = _tokens_and_tables(_drive(off))
+    eng = TierEngine(model, params, _serving(True), eos_id=-1,
+                     sample_temp=temp, seed=3)
+    got = _tokens_and_tables(_drive(eng))
+    assert eng.decode_graph_steps > 0
+    for (toks, tables), (toks0, tables0) in zip(got, want):
+        assert toks == toks0
+        for name, t in tables.items():
+            assert torch.equal(t, tables0[name]), name
+
+
+# a lean instance against its split mirror with P rounded to bf16 (the
+# kernels' tests' tolerance: one bf16 ulp where the f32 sums round apart,
+# plus P's two roundings)
+LEAN_TOL = 8e-3
+
+# the paged kernel with extents: phi-3-vision's (hd 96, group 1), the Qwen
+# pair's (128, 6) and (128, 7), and a lean instance (256, 16); (hd, query
+# heads, KV heads)
+EXTENT_KERNEL_CASES = {
+    "hd96 group 1": (96, 32, 32),
+    "hd128 group 6": (128, 12, 2),
+    "hd128 group 7": (128, 28, 4),
+    "hd256 group 16 (lean)": (256, 16, 1),
+}
+
+
+def _extent_pool(rng, extents, t, page, h, kh, hd):
+    """A pool where slot i holds positions 0..e-1 in its reserved pages (a
+    shuffled table, the tail the null page) and queries at e - 1; a slot
+    of extent 0 is dead: its table the null page, its positions a stale
+    request's 0..t-1."""
+    b = len(extents)
+    used = [-(-e // page) for e in extents]
+    n_pages = sum(used) + 1
+    kp = rng.standard_normal((n_pages, page, kh, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, page, kh, hd)).astype(np.float32)
+    q = rng.standard_normal((b, 1, h, hd)).astype(np.float32)
+    perm = rng.permutation(n_pages - 1) + 1
+    pages = np.zeros((b, -(-t // page)), np.int32)
+    pos = np.full((b, t), -1, np.int32)
+    pq = np.zeros((b,), np.int32)
+    at = 0
+    for i, (e, u) in enumerate(zip(extents, used)):
+        pages[i, :u] = perm[at:at + u]
+        at += u
+        n = e or t  # a dead slot: a stale request's t positions
+        pos[i, :n] = np.arange(n)
+        pq[i] = n - 1
+    return q, kp, vp, pages, pq, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [2048, 4096])
+@pytest.mark.parametrize("case", list(EXTENT_KERNEL_CASES))
+def test_decode_paged_kernel_extents_match_plain(cuda, case, t):
+    """bf16, page 256: extents 0, 1, a page - 1, a page, a split of 1024
+    +- 1, T - 100 and T against the plain version (2e-2) and, lean, the
+    bf16-P split mirror at the device's split length (LEAN_TOL); a dead
+    slot exactly 0; a graph captured at one set of extents replays others
+    (its grid is fixed) equal to eager calls."""
+    hd, h, kh = EXTENT_KERNEL_CASES[case]
+    page = 256
+    extents = (0, 1, 255, 256, 1023, 1025, t - 100, t)
+    rng = np.random.default_rng(hd + h + t)
+    q, kp, vp, pages, pq, pos = (torch.as_tensor(x, device=cuda)
+                                 for x in _extent_pool(rng, extents, t, page,
+                                                       h, kh, hd))
+    q, kp, vp = (x.to(torch.bfloat16) for x in (q, kp, vp))
+    lens = torch.tensor(extents, dtype=torch.int32, device=cuda)
+    got = decode_attention_paged_cuda(q, kp, vp, pages, pq, pos, lens=lens)
+    want = decode_attention_paged_plain(q, kp, vp, pages, pq, pos, lens=lens)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    if lean_instance(hd, h // kh):
+        blocks = plan_blocks(len(extents), kh, t, resident_blocks(
+            cuda.index or 0, torch.bfloat16, hd, h // kh), PLAN_MIN_ROWS,
+            MAX_SPLIT_ROWS)
+        rows = plan_split_rows(extents, kh, blocks, PLAN_MIN_ROWS,
+                               MAX_SPLIT_ROWS)
+        idx = pages.long()
+        kc = kp[idx].reshape(len(extents), -1, kh, hd)[:, :t]
+        vc = vp[idx].reshape(len(extents), -1, kh, hd)[:, :t]
+        mirror = decode_attention_split_plain(
+            q, kc, vc, pq, pos, split_rows=rows, lens=lens,
+            p_dtype=torch.bfloat16)
+        torch.testing.assert_close(got.float(), mirror.float(),
+                                   rtol=LEAN_TOL, atol=LEAN_TOL)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_paged_cuda(q, kp, vp, pages, pq, pos,
+                                          lens=lens)
+    for other in ((t, 0, 1, 2, 3, 4, 5, 6), (0,) * len(extents)):
+        lens.copy_(torch.tensor(other, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, decode_attention_paged_cuda(
+            q, kp, vp, pages, pq, pos, lens=lens))

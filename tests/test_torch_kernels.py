@@ -19,7 +19,8 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     MIN_SPLIT_ROWS, decode_attention_cuda, decode_attention_paged_cuda,
-    decode_attention_split_plain, lean_instance, split_rows_for)
+    decode_attention_paged_plain, decode_attention_split_plain,
+    lean_instance, plan_blocks, plan_split_rows, split_rows_for)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BLOCK_K, BLOCK_Q, _tile_range, blocks_per_sm, flash_attention_cuda,
     flash_attention_plain, flash_attention_tiled_plain, kernel_of)
@@ -423,6 +424,116 @@ def test_paged_plain_matches_xla(t, fill, window):
                                           window=window)
     assert tops.decode_attention_paged.launches == before
     np.testing.assert_array_equal(via_ops.numpy(), got.numpy())
+
+
+# extents (``lens``) over T = 100 rows in pages of 16: 0 (a dead slot), 1, a
+# page - 1, a page, a split of 32 +- 1 and T; the last slot's entries all
+# masked (its extent's mean of V)
+EXTENTS = (0, 1, 15, 16, 31, 33, 100, 100)
+
+
+def _extent_inputs(seed):
+    rng = np.random.default_rng(seed)
+    b, t, page = len(EXTENTS), 100, 16
+    q, kp, vp, pages, pq, pos = (torch.as_tensor(x) for x in _paged_inputs(
+        rng, b, 8, 2, 32, page, 7, t, 90))
+    pos[b - 1] = -1
+    idx = pages.long()
+    kc = kp[idx].reshape(b, -1, 2, 32)[:, :t]
+    vc = vp[idx].reshape(b, -1, 2, 32)[:, :t]
+    lens = torch.tensor(EXTENTS, dtype=torch.int32)
+    return q, kp, vp, pages, pq, pos, kc, vc, lens
+
+
+@pytest.mark.parametrize("window", [None, 16])
+@pytest.mark.parametrize("split_rows", [None, 1, 16, 32, 200])
+def test_decode_extents_equal_per_slot_slicing(split_rows, window):
+    """With extents, the paged plain version (``split_rows`` None) and the
+    split mirror give each slot the plain version over its context sliced
+    to its extent (f32, 1e-6); an extent of 0 gives zeros. Without them
+    (``lens=None``) the paged plain version is bitwise the plain version
+    over the gathered context, as before extents, and full extents agree
+    with it."""
+    q, kp, vp, pages, pq, pos, kc, vc, lens = _extent_inputs(
+        (split_rows or 0) + (window or 0))
+    if split_rows is None:
+        got = decode_attention_paged_plain(q, kp, vp, pages, pq, pos,
+                                           window=window, lens=lens)
+        full = decode_attention_paged_plain(q, kp, vp, pages, pq, pos,
+                                            window=window)
+        assert torch.equal(full, tref.decode_attention_ref(
+            q, kc, vc, pq, pos, window=window))
+    else:
+        got = decode_attention_split_plain(q, kc, vc, pq, pos, window=window,
+                                           split_rows=split_rows, lens=lens)
+        full = decode_attention_split_plain(q, kc, vc, pq, pos, window=window,
+                                            split_rows=split_rows)
+    every = torch.full_like(lens, pos.shape[1])
+    whole = (decode_attention_paged_plain(q, kp, vp, pages, pq, pos,
+                                          window=window, lens=every)
+             if split_rows is None else decode_attention_split_plain(
+                 q, kc, vc, pq, pos, window=window, split_rows=split_rows,
+                 lens=every))
+    torch.testing.assert_close(whole, full, rtol=1e-6, atol=1e-6)
+    for i, e in enumerate(EXTENTS):
+        if e == 0:
+            assert torch.equal(got[i], torch.zeros_like(got[i]))
+            continue
+        want = tref.decode_attention_ref(
+            q[i:i + 1], kc[i:i + 1, :e], vc[i:i + 1, :e], pq[i:i + 1],
+            pos[i:i + 1, :e], window=window)
+        torch.testing.assert_close(got[i:i + 1], want, rtol=1e-6, atol=1e-6)
+
+
+def test_decode_extents_through_the_dispatchers_on_cpu():
+    """``ops.decode_attention_paged`` and the model's dispatcher pass the
+    extents to the plain version on CPU tensors (no launch), and clamp
+    nothing themselves: an extent past T attends T rows."""
+    from repro_torch.models import attention as tattn
+
+    q, kp, vp, pages, pq, pos, _, _, lens = _extent_inputs(5)
+    want = decode_attention_paged_plain(q, kp, vp, pages, pq, pos, lens=lens)
+    before = tops.decode_attention_paged.launches
+    for impl in ("auto", "torch"):
+        got = tattn.decode_attention_paged(q, kp, vp, pages, pq, pos,
+                                           impl=impl, lens=lens)
+        assert torch.equal(got, want)
+    assert tops.decode_attention_paged.launches == before
+    past = torch.full_like(lens, 10 ** 6)
+    assert torch.equal(
+        tops.decode_attention_paged(q, kp, vp, pages, pq, pos, lens=past),
+        decode_attention_paged_plain(q, kp, vp, pages, pq, pos,
+                                     lens=torch.full_like(lens, 100)))
+
+
+@pytest.mark.parametrize("extents,blocks,rows", [
+    # phi-3-vision's cell: 12 live slots of 2650-3960 rows, 32 KV heads, a
+    # grid of 4096 blocks (B x K x 4096 / 1024): 10 splits of 352 a slot
+    ([3300] * 12 + [0] * 20, 4096, 352),
+    # every slot live at 1401 rows of a 1536-row bucket, 4 KV heads, 528
+    # blocks the card holds: 4 splits of 352 a slot, 512 items
+    ([1401] * 32, 528, 352),
+    # three live slots: the least split
+    ([1500, 900, 1900] + [0] * 29, 528, 64),
+    ([0] * 32, 528, 64),  # nothing live
+    ([4096] * 32, 1024, 1024),  # the cap
+])
+def test_plan_split_rows(extents, blocks, rows):
+    """The extent plan's split length (the CUDA kernel's ``plan_rows``):
+    the least multiple of 32 rows from the least split whose items fit the
+    grid; the grid always holds the items of the largest split."""
+    kh = 32 if blocks == 4096 else 4 if blocks == 528 else 8
+    got = plan_split_rows(extents, kh, blocks, 64, 1024)
+    assert got == rows
+
+    def items(r):
+        return kh * sum(-(-e // r) for e in extents)
+    assert items(got) <= blocks
+    assert got == 64 or items(got - 32) > blocks
+    t = max(max(extents), 1)
+    grid = plan_blocks(32, kh, t, blocks, 64, 1024)
+    assert 32 * kh * -(-t // 1024) <= grid <= 32 * kh * -(-t // 64)
+    assert items(plan_split_rows(extents, kh, grid, 64, 1024)) <= grid
 
 
 def test_decode_dispatcher_cuda_impl_refuses_cpu_tensors():
@@ -1035,3 +1146,4 @@ def test_decode_lean_kernel_matches_plain_and_mirror(cuda, case, layout):
     row = got[2, 0].float().reshape(kh, h // kh, hd)
     mean_v = vc[2].float().mean(dim=0)[:, None].expand_as(row)
     torch.testing.assert_close(row, mean_v, rtol=2e-2, atol=2e-2)
+

@@ -39,8 +39,6 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.training import Trainer, init_opt_state  # noqa: E402
 from repro_torch.training.optimizer import OptState, tree_leaves  # noqa
 
-torch.set_float32_matmul_precision("highest")
-
 
 @pytest.fixture()
 def ckpt_dir(tmp_path):

@@ -21,7 +21,6 @@ from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.convert import cache_from_numpy, params_from_numpy  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
-torch.set_float32_matmul_precision("highest")
 TOL = dict(rtol=1e-4, atol=1e-4)
 CAP = 64
 CHUNK = 8

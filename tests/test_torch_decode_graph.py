@@ -46,17 +46,6 @@ from repro_torch.serving.engine import (TierEngine, _named_leaves,  # noqa: E402
                                         _tree_map)
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One torch thread (the suite runs files in parallel, and the small
-    CPU steps here slow down by tens of times when the workers' threads
-    outnumber the cores); the count is restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

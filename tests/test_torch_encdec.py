@@ -37,7 +37,6 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.serving.engine import SlotPayload, TierEngine  # noqa: E402
 
-torch.set_float32_matmul_precision("highest")
 LTOL = dict(rtol=1e-5, atol=1e-5)
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCH = "whisper-small"

@@ -22,8 +22,6 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import MigrationError, TierEngine  # noqa: E402
 
-torch.set_float32_matmul_precision("highest")
-
 
 #: prefill attention impls (JAX, port) that compute the same function: the
 #: default dispatchers, and the Pallas flash-attention kernel against the
@@ -117,7 +115,7 @@ def test_engine_keeps_attn_impl(models):
     assert eng.model.attn_impl == tm.attn_impl
 
 
-def test_unported_engine_paths_raise_with_roadmap_item(models):
+def test_every_engine_path_is_live_for_each_model(models):
     """No engine path raises for this model: speculation (its recurrent
     re-feed included: a verify round that rejects part of its draft
     re-feeds the committed prefix from the slot's untouched rows, and the

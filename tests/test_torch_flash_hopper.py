@@ -32,16 +32,6 @@ TILED_BF16_TOL = 8e-3
 WS = "flash_bf16_ws_kernel"
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """The replays run on one torch thread (the suite runs files in
-    parallel); the count is restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _inputs(seed, b, s, h, kh, hd):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((b, s, h, hd)).astype(np.float32),

@@ -28,8 +28,6 @@ from repro_torch.kernels.image_complexity import (  # noqa: E402
     SCORE_KEYS, image_complexity_cuda, image_stats_banded_plain,
     image_stats_cuda, image_stats_grid, image_stats_plain)
 
-torch.set_float32_matmul_precision("highest")
-
 ATOL = RTOL = 2e-5
 
 

@@ -31,7 +31,6 @@ from repro_torch.serving.engine import (MIGRATION_WIRE_VERSION,  # noqa: E402
                                         MigrationError, SeqState,
                                         SlotPayload, TierEngine)
 
-torch.set_float32_matmul_precision("highest")
 POOLS = {"dense": dict(paged=False), "paged": dict(paged=True,
                                                   kv_page_size=16)}
 

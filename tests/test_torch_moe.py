@@ -44,7 +44,6 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.spec import iter_specs  # noqa: E402
 from repro_torch.serving.engine import TierEngine  # noqa: E402
 
-torch.set_float32_matmul_precision("highest")
 LTOL = dict(rtol=1e-5, atol=1e-5)
 TOL = dict(rtol=1e-4, atol=1e-4)
 #: the router-probability gap between the k-th and (k+1)-th expert that a

@@ -122,6 +122,14 @@ def test_no_jax_or_reference_imports(path):
         assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), (path, mod)
 
 
+def test_tests_run_torch_on_one_thread_at_highest_precision():
+    """The root ``conftest.py`` sets how every test process runs torch: one
+    intra-op thread (the suite's workers share the cores) and f32 matmuls
+    without TF32 (the parity contract's f32)."""
+    assert torch.get_num_threads() == 1
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
 def test_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

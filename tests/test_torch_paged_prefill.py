@@ -40,14 +40,6 @@ SHAPES = {
 }
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _engine(cfg, params=None, **serving):
     model = build_model(cfg.replace(dtype="float32"), attn_impl="torch",
                         device="cpu")

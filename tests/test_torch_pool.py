@@ -56,8 +56,6 @@ from repro_torch.serving.tiers import ClusterServer  # noqa: E402
 from repro_torch.serving.transport import (LocalTransport,  # noqa: E402
                                            ProcessTransport, ReplicaSpec)
 
-torch.set_float32_matmul_precision("highest")
-
 
 def _prompt(n, base=0):
     return ((np.arange(n) + base) % 300 + 4).astype(np.int32)

@@ -40,7 +40,6 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import rglru as trglru  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 
-torch.set_float32_matmul_precision("highest")
 KTOL = dict(rtol=1e-5, atol=1e-5)
 TOL = dict(rtol=1e-4, atol=1e-4)
 

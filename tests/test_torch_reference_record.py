@@ -69,8 +69,6 @@ from repro_torch.checkpoint.checkpointer import (  # noqa: E402
     tree_flatten_with_path)
 from repro_torch.convert import draw_params  # noqa: E402
 
-torch.set_float32_matmul_precision("highest")
-
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: the rule prompts are chosen by, on JAX's margins alone: the first prompt
@@ -493,16 +491,6 @@ _META = replay.load(ROOT)[0] if _HAVE else {
 _KERNELS = {c["id"]: c for c in _META["kernels"]}
 _ENGINES = {c["arch"]: c for c in _META["engines"]}
 _WIRES = {c["arch"]: c for c in _META["wire"]}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The reduced models gain nothing from intra-op threads, and one thread
-    keeps the suite's parallel workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

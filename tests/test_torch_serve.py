@@ -29,8 +29,6 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import TierEngine  # noqa: E402
 from repro_torch.serving.tiers import ClusterServer  # noqa: E402
 
-torch.set_float32_matmul_precision("highest")
-
 
 def test_scheduler_decisions_and_scores_match_jax():
     kw = dict(seed=3, image_hw=64, materialize_images=True)

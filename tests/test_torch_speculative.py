@@ -26,7 +26,6 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import TierEngine  # noqa: E402
 
-torch.set_float32_matmul_precision("highest")
 FAMILIES = ("dense", "vlm",
             # as in the JAX suites, moe rides the slow mark
             pytest.param("moe", marks=pytest.mark.slow), "ssm", "hybrid")

@@ -41,8 +41,6 @@ from repro_torch.training import (Trainer, adamw_update,  # noqa: E402
                                   make_train_step)
 from repro_torch.training.optimizer import tree_leaves  # noqa: E402
 
-torch.set_float32_matmul_precision("highest")
-
 
 def _np_tree(tree):
     return jax.tree.map(np.asarray, jax.device_get(tree))

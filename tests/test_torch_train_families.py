@@ -41,7 +41,6 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.transformer import chunked_ce  # noqa: E402
 from repro_torch.training.train_loop import loss_and_grads  # noqa: E402
 
-torch.set_float32_matmul_precision("highest")
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4  # of the leaf's largest JAX entry
 # family -> arch as tests/conftest.py's FAMILY_ARCHS, plus the second moe
